@@ -1,6 +1,6 @@
-/** Typed surface of the soundswallower_tpu serving API — the TPU
- * framework's equivalent of the reference's js/index.d.ts (a WASM TPU
- * binding is a contradiction; the deployment surface of an
+/** Typed surface of the soundswallower_tpu serving API — the
+ * framework's equivalent of the reference's js/index.d.ts (a WASM
+ * accelerator binding is a contradiction; the deployment surface of an
  * accelerator-backed decoder is a serving endpoint, see serve.py).
  *
  * Wire schema: the reference's result JSON (README.md:63-74 of the

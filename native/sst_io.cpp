@@ -1,6 +1,6 @@
 // Native audio I/O + batch assembly for soundswallower_tpu.
 //
-// The TPU decode path wants large, padded, contiguous float32 batches; the
+// The device decode path wants large, padded, contiguous float32 batches; the
 // host side of that (WAV parsing, int16 -> float32 sample-value scaling,
 // padding/packing, simple ring buffering for streaming) is implemented here
 // in C++ and exposed through a C ABI consumed via ctypes

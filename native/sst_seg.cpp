@@ -1,4 +1,4 @@
-// Segment extraction for the TPU fast path: decoded state paths ->
+// Segment extraction for the device fast path: decoded state paths ->
 // word/phone runs, mirroring aligner._extract exactly (the
 // state_align_search_finish boundary rule: interior boundaries shift
 // +1, state_align_search.c:236-255; merge same-node runs into phones;

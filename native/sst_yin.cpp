@@ -10,7 +10,7 @@
 // The inner accumulation is inherently sequential in its shift state, so
 // the bit-exact path lives here in C++; soundswallower_tpu/yin.py binds
 // it via ctypes and also provides a vectorized float JAX path for
-// batched TPU pitch extraction (where bit-parity with the reference's
+// batched device pitch extraction (where bit-parity with the reference's
 // Q15 arithmetic is not required).
 //
 // Build: make -C native  (produces libsst_yin.so)

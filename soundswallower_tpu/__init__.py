@@ -1,6 +1,6 @@
-"""soundswallower_tpu: TPU-native finite-state-grammar recognizer and
-forced aligner with the capabilities of SoundSwallower, built from scratch
-on JAX/XLA/Pallas.
+"""soundswallower_tpu: finite-state-grammar recognizer and forced
+aligner with the capabilities of SoundSwallower, built from scratch on
+JAX/XLA.
 
 Public API mirrors the reference Python binding
 (py/_soundswallower.pyx: Config, Decoder, FsgModel, Vad, Endpointer,
@@ -13,22 +13,29 @@ import os
 
 import jax
 
+# XLA's Triton GEMM emitter aborts the process (an LLVM layout error,
+# "Dimensions must match ... register, lane, warp") while compiling some
+# batch shapes of the scorer's one-hot matmuls on Hopper; cuBLAS takes
+# them instead.  XLA reads the flag when its backend starts, so this
+# must precede the first use of a device.
+_xla_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_gpu_enable_triton_gemm" not in _xla_flags:
+    os.environ["XLA_FLAGS"] = (
+        _xla_flags + " --xla_gpu_enable_triton_gemm=false").strip()
+
 # The front end requires float64 (see fe/frontend.py); enable x64 globally
 # before any tracing.  f32/int paths are unaffected (explicit dtypes).
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: the f64 FE graph is expensive to compile;
-# cache it across processes.
-_cache_dir = os.environ.get(
-    "SOUNDSWALLOWER_TPU_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache", "soundswallower_tpu", "jax"),
-)
-try:
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
+# Persistent compilation cache.  JAX reads JAX_COMPILATION_CACHE_DIR
+# itself; without it the cache sits at one fixed, git-ignored path in
+# the checkout (the path is part of the cache key, so it must not move).
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache"))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
 
 import collections  # noqa: E402
 

@@ -8,7 +8,7 @@ alignments.
   soundswallower --fsg input.fsg audio.wav
   soundswallower --model fr-fr ...
 
-By default alignment/decoding rides the TPU fast path (TpuAligner: one
+By default alignment/decoding rides the device fast path (TpuAligner: one
 batched dispatch over all input files).  ``--exact`` switches to the
 bit-exact reference-parity decoder (Decoder: the two-pass FSG + state
 alignment used by the byte-parity test suite), which also serves
@@ -55,7 +55,7 @@ def make_argparse() -> argparse.ArgumentParser:
                         help="Produce state-level alignments (exact path)")
     parser.add_argument("--exact", action="store_true",
                         help="Use the bit-exact reference-parity decoder "
-                             "instead of the TPU fast path")
+                             "instead of the device fast path")
     grammars = parser.add_mutually_exclusive_group()
     grammars.add_argument("-a", "--align", help="Input text file for force alignment.")
     grammars.add_argument("-t", "--align-text", help="Input text for force alignment.")
@@ -69,11 +69,14 @@ def make_decoder_config(args: argparse.Namespace) -> Config:
     if args.config is not None:
         with open(args.config) as fh:
             config.parse_json(fh.read())
-    model_path = get_model_path()
-    if args.model in os.listdir(model_path):
-        config["hmm"] = os.path.join(model_path, args.model)
-    else:
+    if os.path.isdir(args.model):
         config["hmm"] = args.model
+    else:
+        try:
+            config["hmm"] = get_model_path(args.model)
+        except RuntimeError:
+            # no model root: keep the name; loading it reports the path
+            config["hmm"] = args.model
     if args.dict is not None:
         config["dict"] = args.dict
     if args.grammar is not None:
@@ -150,7 +153,7 @@ def _run_exact(config: Config, args, align_level: int) -> list:
 
 
 def _run_fast(config: Config, args, align_level: int) -> list:
-    """TPU fast path: all input files of one sample rate go through ONE
+    """Device fast path: all input files of one sample rate go through ONE
     batched dispatch (align_batch_scored / decode_batch_scored), output
     in the same line-JSON schema as the reference CLI."""
     from .aligner import TpuAligner, result_json_from_segs

@@ -8,8 +8,8 @@ bookkeeping (acmod_activate_hmm / acmod_flags2list with 255-delta
 bridging, acmod.c:905-999) and the line-JSON result writer
 (decoder_result_json, decoder.c:1502-1593).
 
-This is the exactness path (host search over TPU-scored frames can be
-enabled later; the batch TPU pipeline lives in ops/ and parallel/).
+This is the exactness path (host search over device-scored frames can
+be enabled later; the batch device pipeline lives in ops/ and parallel/).
 """
 
 from __future__ import annotations
@@ -737,23 +737,7 @@ class Decoder:
             # fe_init check (fe_interface.c:299-305)
             raise RuntimeError(
                 f"Upper frequency {c['upperf']} is higher than samprate/2")
-        self.fe = Frontend(
-            sampling_rate=c.get_int("samprate"),
-            frame_rate=c.get_int("frate"),
-            window_length=c.get_float("wlen"),
-            fft_size=c.get_int("nfft"),
-            num_cepstra=c.get_int("ncep"),
-            num_filters=c.get_int("nfilt"),
-            lower_filt_freq=c.get_float("lowerf"),
-            upper_filt_freq=c.get_float("upperf"),
-            pre_emphasis_alpha=c.get_float("alpha"),
-            lifter_val=c.get_int("lifter"),
-            transform=c["transform"],
-            warp_type=c["warp_type"] or "inverse_linear",
-            warp_params=c["warp_params"],
-            remove_noise=c.get_bool("remove_noise"),
-            remove_dc=c.get_bool("remove_dc"),
-        )
+        self.fe = Frontend.from_config(c)
         # feat_init (feat.c:732-927): feature-type registry + LDA +
         # subvector specification
         lda = None

@@ -37,7 +37,7 @@ WIN = FEAT_DCEP_WIN + 1  # feat window size for 1s_c_d_dd
 # evaluate f32 chains in f64 on CPU, which breaks bit-parity of the float32
 # accumulation in CMN.  The numpy path below is the exactness oracle used by
 # the decoder's parity-critical path and by tests; the jitted path is used
-# for batched TPU throughput (where f32 is native and exact anyway).
+# for batched device throughput.
 # ---------------------------------------------------------------------------
 
 def cmn_batch_np(cep: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

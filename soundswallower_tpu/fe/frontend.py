@@ -26,9 +26,11 @@ zero-padded frame covers the tail if any samples remain; pre-emphasis uses
 the true previous sample across frame boundaries (prior = 0 at utterance
 start).
 
-Design note (TPU): this module runs under jit on any backend.  float64 on
-TPU is emulated but the FE is a negligible fraction of decode FLOPs (the
-GMM stage dominates); parity is worth more than the microseconds.  A
+Design note: this module runs under jit on any backend.  float64 is
+slower than float32 on an accelerator, but the FE is a negligible
+fraction of decode FLOPs (the GMM stage dominates) and the default host
+FE (fe/native_fe.py) takes it off the device; parity is worth more than
+the microseconds.  A
 float32 fast path can be selected with ``dtype=jnp.float32`` for
 throughput experiments.
 """
@@ -268,6 +270,27 @@ class Frontend:
             self._lifter = lift
         else:
             self._lifter = None
+
+    @classmethod
+    def from_config(cls, c) -> "Frontend":
+        """The front end a ``Config`` describes (fe_init's parameters)."""
+        return cls(
+            sampling_rate=c.get_int("samprate"),
+            frame_rate=c.get_int("frate"),
+            window_length=c.get_float("wlen"),
+            fft_size=c.get_int("nfft"),
+            num_cepstra=c.get_int("ncep"),
+            num_filters=c.get_int("nfilt"),
+            lower_filt_freq=c.get_float("lowerf"),
+            upper_filt_freq=c.get_float("upperf"),
+            pre_emphasis_alpha=c.get_float("alpha"),
+            lifter_val=c.get_int("lifter"),
+            transform=c["transform"],
+            warp_type=c["warp_type"] or "inverse_linear",
+            warp_params=c["warp_params"],
+            remove_noise=c.get_bool("remove_noise"),
+            remove_dc=c.get_bool("remove_dc"),
+        )
 
     # -- frame counting (output_frame_count, fe_interface.c:379-391) -------
 

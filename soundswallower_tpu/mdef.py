@@ -380,3 +380,65 @@ class BinMdef:
     @property
     def silphone(self) -> int:
         return self.sil
+
+
+def write_bin_mdef(path: str, ciname, filler, phones, sseq: np.ndarray,
+                   n_ci_sen: int, n_sen: int, n_tmat: int, sil: int) -> None:
+    """Write a binary mdef in the layout ``BinMdef`` reads
+    (bin_mdef.c:332-525).
+
+    ciname/filler: CI phone names and filler flags.  phones: one
+    (base, lc, rc, wpos, ssid) tuple per phone, CI phones first with
+    lc = rc = wpos = -1; every phone uses its base phone's tmat.
+    sseq: uint16 [n_sseq, n_emit] senone sequences.  The cd_tree is
+    laid out level by level (word position, base, left, right), each
+    node's children contiguous, leaves holding the phone id.
+    """
+    n_ci = len(ciname)
+    tree: dict = {}
+    for pid, (b, lc, rc, wpos, _) in enumerate(phones[n_ci:], start=n_ci):
+        node = tree.setdefault(wpos, {}).setdefault(b, {})
+        node.setdefault(lc, {})[rc] = pid
+    level = [(w, tree.get(w, {})) for w in range(N_WORD_POSN)]
+    entries = []
+    while level:
+        nxt = []
+        first_child = len(entries) + len(level)
+        for ctx, sub in level:
+            if isinstance(sub, dict):
+                kids = sorted(sub.items())
+                entries.append((ctx, len(kids),
+                                first_child + len(nxt) if kids else -1))
+                nxt.extend(kids)
+            else:
+                entries.append((ctx, 0, sub))
+        level = nxt
+    tree_rec = np.zeros(len(entries), np.dtype(
+        [("ctx", "<i2"), ("ndown", "<i2"), ("down", "<i4")]))
+    tree_rec["ctx"], tree_rec["ndown"], tree_rec["down"] = zip(*entries)
+
+    ph = np.zeros(len(phones), np.dtype(
+        [("ssid", "<i4"), ("tmat", "<i4"), ("info", "u1", 4)]))
+    for pid, (b, lc, rc, wpos, ssid) in enumerate(phones):
+        ph[pid]["ssid"] = ssid
+        ph[pid]["tmat"] = b
+        ph[pid]["info"] = ((int(filler[b]), 0, 0, 0) if pid < n_ci
+                           else (wpos, b, lc, rc))
+
+    names = b"".join(n.encode() + b"\0" for n in ciname)
+    names += b"\0" * (-len(names) % 4)
+    hdr = b"BMDF seeded model definition\0"
+    hdr += b"\0" * (-len(hdr) % 4)
+    sseq = np.ascontiguousarray(sseq, "<u2")
+    with open(path, "wb") as fh:
+        fh.write(np.array([BIN_MDEF_NATIVE_ENDIAN, 1, len(hdr)],
+                          "<i4").tobytes())
+        fh.write(hdr)
+        fh.write(np.array([n_ci, len(phones), sseq.shape[1], n_ci_sen, n_sen,
+                           n_tmat, len(sseq), 3, len(entries), sil],
+                          "<i4").tobytes())
+        fh.write(names)
+        fh.write(tree_rec.tobytes())
+        fh.write(ph.tobytes())
+        fh.write(np.array([sseq.size], "<i4").tobytes())
+        fh.write(sseq.tobytes())

@@ -1,10 +1,10 @@
-"""TPU forced-alignment Viterbi over a phone graph.
+"""Device forced-alignment Viterbi over a phone graph.
 
 The reference aligns in two passes: an FSG beam search over a linear word
 chain with silence self-loops (fsg_search.c), then a constrained
 state-level Viterbi over the resulting word windows
-(state_align_search.c).  On TPU we recast this as ONE masked Viterbi DP
-over a *phone graph* built on the host (see graph builder in
+(state_align_search.c).  On the device we recast this as ONE masked
+Viterbi DP over a *phone graph* built on the host (see graph builder in
 ops/align_graph.py): the word chain with optional silence phones between
 words, boundary-phone triphone variants for both context paths, and
 word/silence entry penalties mirroring the pass-1 FSG costs
@@ -40,12 +40,17 @@ TMAT_WORST = -255
 NEG_INF = jnp.int32(-2147483648)
 
 
+# Scan unroll factors of the batched Viterbi and backtrace on an
+# accelerator (chip_smoke.py times them against 1 on the card).
+VITERBI_UNROLL = 4
+BACKTRACE_UNROLL = 8
+
+
 def _scan_unroll(n: int) -> int:
-    """Scan unroll factor: n on accelerators (measured win on the TPU
-    Viterbi), 1 on the CPU backend where XLA's compile time scales with
-    the unrolled body (a cold 8-virtual-device CPU compile of the
-    batched Viterbi measured 184s at unroll=4 — it is what tests and
-    the multichip dryrun pay, with zero runtime upside there)."""
+    """Scan unroll factor: n on an accelerator, 1 on the CPU backend,
+    where XLA's compile time scales with the unrolled body (a cold
+    8-virtual-device CPU compile of the batched Viterbi took minutes at
+    unroll=4, with no runtime gain there)."""
     return n if jax.default_backend() != "cpu" else 1
 
 
@@ -219,7 +224,7 @@ def _eval_emit(score, hist, out_score, out_hist, senscr, tp, active,
         return _eval_5st(score, hist, out_score, out_hist, senscr, tp,
                          active)
     raise NotImplementedError(
-        f"TPU Viterbi supports 3/5 emitting states, got {E} "
+        f"device Viterbi supports 3/5 emitting states, got {E} "
         "(use the host decoder path for anytopo models)")
 
 
@@ -235,10 +240,9 @@ def build_pred_table(edge_src, edge_dst, edge_pen, n_nodes: int,
     the C edge-iteration tie-break (phone_transition,
     state_align_search.c:108-133).
 
-    This dense form replaces a segment-max over the edge list: on TPU a
-    [P, K] gather + max is a single fused vector op per scan step,
-    where scatter-style segment ops and int64 (score, idx) packing are
-    emulated and dominate the step latency.
+    This dense form replaces a segment-max over the edge list: a
+    [P, K] gather + max is one fused vector op per scan step, with no
+    scatter-style segment ops or int64 (score, idx) packing.
     """
     edge_src = np.asarray(edge_src)
     edge_dst = np.asarray(edge_dst)
@@ -375,7 +379,7 @@ def align_viterbi(senscr, senid, tp, pred_idx, pred_pen, pred_ok,
     carry0 = vit_carry0(P, entry_score, E)
     (score, hist, out_score, out_hist, _), (tok_id, tok_score) = \
         jax.lax.scan(step, carry0, (jnp.arange(T, dtype=i32), sen_all),
-                     unroll=_scan_unroll(4))
+                     unroll=_scan_unroll(VITERBI_UNROLL))
     return tok_id, tok_score, out_score, out_hist
 
 
@@ -388,12 +392,11 @@ def _eval_3st_lanes(score, hist, out_score, out_hist, senscr, tp, active):
     (per-LANE transition matrices, the multi-graph batch path),
     active [P, B] bool.
 
-    Why: with [B, P, 3] layouts every per-state array has a minor dim of
-    3, which the TPU pads to 128 lanes — 42x wasted vector lanes and HBM
-    bandwidth per scan step, making the Viterbi scan the pipeline
-    bottleneck (measured ~0.43 ms/frame at B=512).  Putting B in lanes
-    fills the vector unit and makes the per-frame state ~P*3*B*4 bytes
-    dense.
+    Why: with [B, P, 3] layouts every per-state array has a minor dim
+    of 3; putting B in the minor dimension keeps the per-frame state
+    ~P*3*B*4 dense, contiguous bytes.  (The layout was chosen for a
+    machine with 128-wide vector lanes; whether it is the best layout
+    on the GPU is for a trace to decide.)
     """
     i32 = jnp.int32
 
@@ -485,10 +488,10 @@ def make_vit_step_lanes(tp, pred_idx, pred_pen, pred_ok, astart, aend,
     [W,P,B] bool) banded predecessor tables — slot i holds the edge
     from node p-(W-i) to p, or absent.  Alignment chain graphs are
     near-linear (offsets dst-src are small and positive), so the
-    per-lane gather becomes W static row-shifts + selects; the
-    measured TPU lowering of per-lane take_along_axis inside the scan
-    is ~18x slower than the whole banded loop (240 vs ~13 us/step at
-    B=64, P=64).  Tie-break: slots iterate d descending = src
+    per-lane gather becomes W static row-shifts + selects instead of a
+    per-lane take_along_axis inside the scan (the gather was far slower
+    on the machine this was written for; not yet measured on the GPU).
+    Tie-break: slots iterate d descending = src
     ascending, with strict >, reproducing build_pred_table's
     first-max-wins edge order.
     """
@@ -624,8 +627,7 @@ def align_viterbi_batch(sen_g, tp, pred_idx, pred_pen, pred_ok,
 
     band_pen/band_ok [B, W, P] (per-row form only): banded predecessor
     tables from stack_graphs; when given, the K-slot gather loop is
-    replaced by W static row-shifts (see make_vit_step_lanes) — ~18x
-    faster per scan step on TPU for chain-like graphs.
+    replaced by W static row-shifts (see make_vit_step_lanes).
 
     Returns (tok_id [B, T, S], tok_score or None, out_score [B, P],
     out_hist [B, P]).  Bit-identical to vmap(align_viterbi) — the lane
@@ -654,7 +656,7 @@ def align_viterbi_batch(sen_g, tp, pred_idx, pred_pen, pred_ok,
     carry0 = vit_carry0_lanes(P, B, entry_score, E)
     (score, hist, out_score, out_hist, _), (tok_id, tok_score) = \
         jax.lax.scan(step, carry0, (jnp.arange(T, dtype=i32), sen_l),
-                     unroll=_scan_unroll(4))
+                     unroll=_scan_unroll(VITERBI_UNROLL))
     tok_id = tok_id.transpose(2, 0, 1)                    # [B, T, S]
     if with_scores:
         tok_score = tok_score.transpose(2, 0, 1)
@@ -692,7 +694,8 @@ def backtrace(tok_id, tok_score, final_state, final_score, n_frames):
 
     (first_id, _), (path_rev, score_rev) = jax.lax.scan(
         step, (final_state, final_score if with_scores else None),
-        jnp.arange(T - 1, -1, -1, dtype=jnp.int32), unroll=_scan_unroll(8))
+        jnp.arange(T - 1, -1, -1, dtype=jnp.int32),
+        unroll=_scan_unroll(BACKTRACE_UNROLL))
     return path_rev[::-1], (score_rev[::-1] if with_scores else None)
 
 
@@ -704,9 +707,9 @@ def backtrace_batch(tok_id, tok_score, final_state, final_score, n_frames):
     (path [B, T] int32, path_score [B, T] int32 or None).  Equivalent
     to vmap(backtrace), but the per-lane token lookup tok[t, cur_id_b]
     is a one-hot masked max over states ([S, B] elementwise ops per
-    step) instead of a batched dynamic gather — the gather lowering
-    inside a scan measures ~10x slower on TPU (the same pathology as
-    the per-lane predecessor gathers, see make_vit_step_lanes).
+    step) instead of a batched dynamic gather inside the scan (the same
+    choice as the per-lane predecessor gathers, see
+    make_vit_step_lanes).
 
     Failed rows (final_state < 0) match vmap(backtrace)'s contract at
     the only frame extraction reads: path[n_frames-1] stays negative.
@@ -745,6 +748,6 @@ def backtrace_batch(tok_id, tok_score, final_state, final_score, n_frames):
     (_, _), (path_rev, score_rev) = jax.lax.scan(
         step, (final_state,
                final_score if with_scores else None), xs,
-        unroll=_scan_unroll(8))
+        unroll=_scan_unroll(BACKTRACE_UNROLL))
     path = path_rev[::-1].T                                 # [B, T]
     return path, (score_rev[::-1].T if with_scores else None)

@@ -1,9 +1,9 @@
-"""FSG -> static decode graph for TPU grammar decoding.
+"""FSG -> static decode graph for device grammar decoding.
 
 The reference decodes grammars with a dynamic beam search over a lazily
 activated lextree (fsg_search.c / fsg_lextree.c): active lists, adaptive
 beams, and a deduplicated history table — all CPU-sparse machinery.  The
-TPU-native recast compiles the WHOLE search space to a static phone
+device recast compiles the WHOLE search space to a static phone
 graph at grammar-load time and runs dense global Viterbi over it with
 the SAME kernel the aligner uses (ops/align_jax.py):
 
@@ -22,8 +22,8 @@ the SAME kernel the aligner uses (ops/align_jax.py):
 * silence/filler self-loops and alternate pronunciations are ordinary
   transitions (fsg_model add_silence/add_alt).
 
-No beams: dense Viterbi evaluates every state every frame (the TPU-fast
-regime) and therefore finds the global optimum — beam search's pruning
+No beams: dense Viterbi evaluates every state every frame (the regime
+a wide vector machine is fast at) and therefore finds the global optimum — beam search's pruning
 exists only for CPU speed and can only do worse.  Hyps and boundaries
 match the reference on its test grammars (tests/test_decode_tpu.py).
 """

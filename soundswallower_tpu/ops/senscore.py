@@ -14,7 +14,7 @@ Two implementations:
   over codewords where C is.  Used for bit-parity tests and as the oracle
   for the fast path.
 
-* ``score_frames_jax`` (ops/senscore_jax.py) - dense TPU path.
+* ``score_frames_jax`` (ops/senscore_jax.py) - dense device path.
 
 Scores follow the C convention: int16, 0 = best in frame, larger = worse
 (negated normalized log-likelihoods), SENSCR_SHIFT-quantized.

@@ -1,13 +1,12 @@
-"""Batched TPU senone scoring (dense fast path).
+"""Batched device senone scoring (dense fast path).
 
 Computes int16 senone scores for whole utterances in one jit:
 
 1. Mahalanobis distances for every (frame, codebook, stream, density) via
    the same float32 fold as the C code (det - sum diff^2*var in dim
-   order; exact on TPU where f32 is native), or optionally an MXU matmul
-   expansion (different rounding, faster for huge batches).
+   order, no contracted multiply-add; see _distances_fold).
 2. Per-frame top-N densities by final int32 distance via N iterative
-   argmax rounds (lax.top_k lowers to a slow full sort on TPU).  This
+   masked argmax rounds.  This
    intentionally drops two C quirks with negligible effect (measured
    3/35028 top-4 sets on goforward): eval_cb's dynamic-threshold early
    termination (ptm_mgau.c:181-209) and cross-frame seeding.
@@ -27,7 +26,6 @@ senones (score = -bestscore).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +38,20 @@ MAX_NEG_ASCR = 96
 MAX_NEG_INT32 = -2147483648
 
 
+
+def mm_dtype():
+    """Operand type of the one-hot mixture-weight matmuls.
+
+    The one-hot selects a single integer weight <= 255 and the sum is
+    taken in f32 (preferred_element_type), so bf16 and f32 are both
+    exact.  On the GPU bf16 runs on the tensor cores at their full rate
+    with half the bytes (an f32 operand would run as TF32 anyway).
+    XLA's CPU backend has no batched bf16 x bf16 -> f32 dot, so the CPU
+    keeps f32.  The tables are built in this type, and the one-hot
+    follows the table's dtype."""
+    return jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
+
+
 @jax.tree_util.register_dataclass
 @dataclass(eq=False)
 class ScorerTables:
@@ -49,7 +61,7 @@ class ScorerTables:
     means: jnp.ndarray      # f32 [cb, F, D, L]
     var_t: jnp.ndarray      # f32 [cb, F, D, L]
     det: jnp.ndarray        # f32 [cb, F, D]
-    mixw_g: jnp.ndarray     # int32 [F, G, D, M] grouped mixture weights
+    mixw_g: jnp.ndarray     # mm_dtype() [F, G, D, M] grouped mixture wts
     valid_g: jnp.ndarray    # bool [G, M] real senone mask
     cb_of: jnp.ndarray      # int32 [G] group -> codebook id
     table_thresh: jnp.ndarray  # int32 [K] log-add staircase thresholds
@@ -138,7 +150,7 @@ class ScorerTables:
             means=jnp.asarray(am.means),
             var_t=jnp.asarray(am.var_t),
             det=jnp.asarray(am.det),
-            mixw_g=jnp.asarray(mixw_g.astype(np.int32)),
+            mixw_g=jnp.asarray(mixw_g, dtype=mm_dtype()),
             valid_g=jnp.asarray(valid_g),
             cb_of=jnp.asarray(cb_of.astype(np.int32)),
             table_thresh=jnp.asarray(thresh),
@@ -165,27 +177,24 @@ def _distances_fold(t: ScorerTables, feats):
 
     One dimension at a time so no [T,cb,F,D,L] tensor ever materializes
     (with batching that would be tens of GB); XLA fuses the unrolled
-    per-dim updates into one elementwise kernel."""
+    per-dim updates into one elementwise kernel.
+
+    C rounding needs the product rounded before the subtract.  XLA's GPU
+    backend contracts ``d - p`` into a fused multiply-add (no XLA flag
+    turns that off), which moved ~2% of the int32 distances by 1-2
+    units against the CPU.  The select on ``p == p`` (always true: p is
+    never NaN here) sits between the multiply and the subtract, so no
+    fused multiply-add can form, at no measured cost; chip_smoke.py
+    phase 8(b) checks that the GPU's distances equal the CPU's."""
     L = t.means.shape[-1]
     T = feats.shape[0]
     shape = (T,) + t.det.shape
     d = jnp.broadcast_to(t.det[None], shape).astype(jnp.float32)
     for i in range(L):
         diff = feats[:, None, :, None, i] - t.means[None, :, :, :, i]
-        d = d - (diff * diff) * t.var_t[None, :, :, :, i]
+        p = (diff * diff) * t.var_t[None, :, :, :, i]
+        d = d - jnp.where(p == p, p, jnp.float32(0))
     return d
-
-
-def _distances_mxu(t: ScorerTables, feats):
-    """MXU expansion: d = det - c - x2.v + 2 x.(mu*v) (different f32
-    rounding than the fold; for max-throughput modes)."""
-    mu_v = t.means * t.var_t
-    c = jnp.sum(t.means * mu_v, axis=-1)
-    xv = jnp.einsum("tfl,cfdl->tcfd", feats * feats, t.var_t,
-                    preferred_element_type=jnp.float32)
-    xmv = jnp.einsum("tfl,cfdl->tcfd", feats, mu_v,
-                     preferred_element_type=jnp.float32)
-    return t.det[None] - c[None] - xv + 2.0 * xmv
 
 
 def _int_dist(d):
@@ -199,14 +208,8 @@ def _topn_argmax(di, n):
     tie-breaking, same as lax.top_k's lowest-index tie rule and the C
     argmax loops).
 
-    Implemented as n iterative masked argmax rounds, NOT lax.top_k:
-    top_k's TPU lowering is a full sort that measured 127 ms on a
-    [98k, 17, 3, 128] int32 operand where the four argmax rounds cost
-    ~30 ms (r4 had recorded the opposite — that measurement predated
-    learning that block_until_ready does not wait for execution on
-    this runtime, so it timed dispatch, not compute).  top_k's
-    lowering is also pathologically shape-sensitive (2-3x swings by
-    leading-dim factorization); the argmax rounds are not."""
+    Implemented as n iterative masked argmax rounds (a few fused
+    reductions over the last axis) rather than lax.top_k."""
     D = di.shape[-1]
     lane = jnp.arange(D, dtype=jnp.int32)
     taken = jnp.zeros(di.shape, bool)
@@ -235,15 +238,10 @@ def _fast_logadd(x, y, thresh):
     return r - add
 
 
-@partial(jax.jit, static_argnums=(2,))
-def _dist_stage(tables: ScorerTables, feats, dist_mode: str = "fold"):
+@jax.jit
+def _dist_stage(tables: ScorerTables, feats):
     """feats [T, F, L] float32 -> int32 distances [T, cb, F, D]."""
-    t = tables
-    if dist_mode == "mxu":
-        d = _distances_mxu(t, feats)
-    else:
-        d = _distances_fold(t, feats)
-    return _int_dist(d)
+    return _int_dist(_distances_fold(tables, feats))
 
 
 @jax.jit
@@ -251,41 +249,50 @@ def _topn_stage(tables: ScorerTables, di):
     return _topn_argmax(di, tables.max_topn)
 
 
-def _sen_eval(tables: ScorerTables, topn_scores, topn_cw):
-    """Top-N codeword scores/ids [T,cb,F,N] -> grouped scores int16 [T,G]
-    (plain function; _sen_stage is its jitted form)."""
-    t = tables
-    # codebook_norm (ptm_mgau.c:264-295)
+def _codebook_norm(topn_scores, row_cbs=None):
+    """codebook_norm (ptm_mgau.c:264-295): shifted top-N scores
+    [T, C, F, N] -> per-codebook scores relative to the frame's best
+    top-1 codebook, clamped at MAX_NEG_ASCR.
+
+    row_cbs (optional bool [R, C]): the frames are R equal rows (a
+    batch's utterances, flattened) and the best is taken only over the
+    codebooks of each row's own graph, exactly as a scorer restricted
+    to that graph alone would.  The clamp makes the norm's codebook set
+    matter, so without this a row's scores would depend on which other
+    utterances share its batch."""
     shifted = topn_scores >> SENSCR_SHIFT
-    norm = jnp.max(shifted[..., 0], axis=1, keepdims=True)
-    s = -(shifted - norm[..., None])
-    s = jnp.minimum(s, MAX_NEG_ASCR)                       # [T,cb,F,N]
+    top1 = shifted[..., 0]                                 # [T, C, F]
+    if row_cbs is not None:
+        per_row = top1.shape[0] // row_cbs.shape[0]
+        mask = jnp.repeat(row_cbs, per_row, axis=0)[..., None]
+        top1 = jnp.where(mask, top1, jnp.iinfo(jnp.int32).min)
+    norm = jnp.max(top1, axis=1, keepdims=True)            # [T, 1, F]
+    return jnp.minimum(-(shifted - norm[..., None]), MAX_NEG_ASCR)
+
+
+def _sen_eval(tables: ScorerTables, topn_scores, topn_cw, row_cbs=None):
+    """Top-N codeword scores/ids [T,cb,F,N] -> grouped scores int16 [T,G]
+    (plain function; _sen_stage is its jitted form).  row_cbs: see
+    _codebook_norm (bool [R, n_cb])."""
+    t = tables
+    s = _codebook_norm(topn_scores, row_cbs)               # [T,cb,F,N]
 
     # senone_eval in grouped layout.  Per-group top-N codewords/scores
     # come from the group's codebook (cb_of gather, 42 -> G groups).
     # The mixture-weight lookup mw[t,g,m] = mixw[f, cw[t,g,f,j], m] is
-    # computed as a one-hot batched matmul on the MXU (contraction over
-    # the 128 densities): exact, because the one-hot selects a single
-    # integer-valued bf16 entry (<=255, exactly representable) and the
-    # MXU accumulates in f32.  3x faster than the equivalent row gather
-    # on TPU.
+    # computed as a one-hot batched matmul (contraction over the 128
+    # densities), exact in the table's dtype (see mm_dtype).
     cw_g = topn_cw[:, t.cb_of]                             # [T,G,F,N]
     s_g = s[:, t.cb_of]                                    # [T,G,F,N]
     F = t.mixw_g.shape[0]
-    # bf16 feeds the MXU on TPU; the CPU backend's dot kernel does not
-    # support bf16 x bf16 -> f32, so use f32 there.  Both are exact:
-    # the one-hot selects a single integer entry <= 255, representable
-    # in either type, and accumulation is f32.
-    mm_dtype = (jnp.bfloat16 if jax.default_backend() not in ("cpu",)
-                else jnp.float32)
-    mixw_bf = t.mixw_g.astype(mm_dtype)                    # [F,G,D,M]
-    D = mixw_bf.shape[2]
+    mixw = t.mixw_g                                        # [F,G,D,M]
+    D = mixw.shape[2]
     ascore = None
     for f in range(F):
         fden = None
         for j in range(t.max_topn):
-            oh = jax.nn.one_hot(cw_g[:, :, f, j], D, dtype=mm_dtype)
-            mw = jnp.einsum("tgd,gdm->tgm", oh, mixw_bf[f],
+            oh = jax.nn.one_hot(cw_g[:, :, f, j], D, dtype=mixw.dtype)
+            mw = jnp.einsum("tgd,gdm->tgm", oh, mixw[f],
                             preferred_element_type=jnp.float32)
             mw = mw.astype(jnp.int32)                      # [T,G,M]
             term = mw + s_g[:, :, f, j][..., None]         # [T,G,M]
@@ -389,24 +396,17 @@ def _ms_stage(tables: ScorerTables, di_f):
     return jnp.clip(scr - best, -32768, 32767).astype(jnp.int16)
 
 
-def score_frames(tables: ScorerTables, feats, dist_mode: str = "fold"):
+def score_frames(tables: ScorerTables, feats, row_cbs=None):
     """feats [T, F, L] float32 -> grouped senone scores int16 [T, G].
 
-    Three separately dispatched jits, NOT one fused XLA graph: on TPU,
-    XLA fuses the unrolled 13-dim distance fold into its consumers (even
-    through lax.optimization_barrier), which measures 10-20x slower
-    than materializing the distances (1.25 s -> 0.11 s per 12k frames).
-    Dispatches are async, so staging costs only host-side microseconds.
+    Without row_cbs these are compallsen scores (0 = best per frame).
+    With row_cbs (bool [R, n_cb], see _codebook_norm) each row is
+    normalized over its own graph's codebooks; ms models ignore it (no
+    cross-codebook norm).
 
-    A fused distance+top-N Pallas kernel was evaluated through r5 and
-    removed: after the top-N stage switched from lax.top_k's sort
-    lowering to the masked-argmax rounds (see _topn_argmax), the staged
-    path's remaining cost is the distance fold itself, and Mosaic's
-    block constraints force the kernel to either pad its (F*N=12)-lane
-    output tiles ~10x or re-mask a cross-codebook accumulator — both
-    burn more HBM traffic than fusing the distance tensor saves.
-    Measured 296 ms (kernel) vs 70 ms (staged) per 24k frames; see
-    README \"Performance notes\".
+    Three separately dispatched jits (distances, top-N, senone eval)
+    that materialize the distance tensor between stages; dispatches are
+    async, so staging costs only host-side microseconds.
     """
     if tables.backend == "ms":
         # fully-continuous path: float top-N + ms_senone semantics,
@@ -414,9 +414,9 @@ def score_frames(tables: ScorerTables, feats, dist_mode: str = "fold"):
         # (identity for the 1:1 mapping)
         return _ms_stage(tables, _dist_stage_ms(tables, feats)
                          )[:, tables.sen_inv]
-    di = _dist_stage(tables, feats, dist_mode)
+    di = _dist_stage(tables, feats)
     topn_scores, topn_cw = _topn_stage(tables, di)
-    return _sen_stage(tables, topn_scores, topn_cw)
+    return _sen_stage(tables, topn_scores, topn_cw, row_cbs)
 
 
 def ungroup(tables: ScorerTables, grouped: np.ndarray) -> np.ndarray:
@@ -459,7 +459,7 @@ class GraphScorer:
     means: jnp.ndarray       # f32 [Cu, F, D, L] used-codebook rows
     var_t: jnp.ndarray       # f32 [Cu, F, D, L]
     det: jnp.ndarray         # f32 [Cu, F, D]
-    wsel: jnp.ndarray        # mm-dtype [F, Cu*D, S] mixture columns
+    wsel: jnp.ndarray        # mm_dtype() [F, Cu*D, S] mixture columns
     cb_pos: jnp.ndarray      # int32 [S] graph state -> used-codebook row
     table_thresh: jnp.ndarray  # int32 [K] log-add staircase
     max_topn: int = field(metadata=dict(static=True), default=4)
@@ -481,15 +481,10 @@ class GraphScorer:
         sen2cb = np.asarray(am.sen2cb, np.int64)
         used_cb = np.unique(sen2cb[senid_flat])
         # NOTE: the used-codebook count Cu is NOT bucketed — every
-        # distinct Cu compiles its own distance/top-N shapes (20-40s
-        # each on TPU).  Deliberate: the TPU lowering is pathologically
-        # shape-sensitive (top_k at Cu=16 measures ~6x slower than 15
-        # or 17 — see _topn_argmax), so blind padding costs steady-state
-        # throughput.  Serving workloads with many transcripts should
-        # prefer the multi-graph dense path (aligner._batch_begin_mixed),
-        # whose compiled shapes are transcript-independent; SST_GRAPH_PAD
-        # bounds the per-transcript graph (P) classes for this scorer
-        # but, by design, not Cu.
+        # distinct Cu compiles its own distance/top-N shapes.  Serving
+        # workloads with many transcripts ride the multi-graph path
+        # (aligner._batch_begin_mixed), whose compiled shapes are
+        # transcript-independent.
         n_cb_total = int(sen2cb.max()) + 1
         cb_row = np.full(n_cb_total, -1, np.int64)
         cb_row[used_cb] = np.arange(len(used_cb))
@@ -500,30 +495,17 @@ class GraphScorer:
         mixw_s = am.mixw_dense(senid_flat).astype(np.int64)  # [F, D, S]
         F, D = mixw_s.shape[0], mixw_s.shape[1]
         Cu = len(used_cb)
-        # top_k's TPU lowering is pathological at Cu multiples of 8
-        # >= 16 (Cu=16/24/32 measure ~2.3x slower than 15/17/20 at the
-        # same T — see _topn_argmax): dodge by duplicating one codebook
-        # row.  No senone references the pad row (cb_pos stays < Cu)
-        # and the cross-codebook norm max is unchanged by a duplicate.
-        cb_rows = used_cb
-        if Cu >= 16 and Cu % 8 == 0:
-            cb_rows = np.concatenate([used_cb, used_cb[:1]])
         # wsel[f, c*D+d, s] = mixw_s[f, d, s] iff graph state s uses
         # codebook row c: one [T, Cu*D] one-hot matmul then yields the
-        # per-state mixture weight mw[t, s] on the MXU.  bf16 entries
-        # are integers <= 255, exactly representable; accumulation f32.
-        # (rows sized for the possibly-padded codebook count; the pad
-        # block stays all-zero, contributing nothing to any state)
-        wsel = np.zeros((F, len(cb_rows) * D, S), np.float32)
+        # per-state mixture weight mw[t, s] (exact; see mm_dtype).
+        wsel = np.zeros((F, Cu * D, S), np.float32)
         rows = cb_pos[None, :] * D + np.arange(D)[:, None]   # [D, S]
         wsel[:, rows, np.arange(S)[None, :]] = mixw_s
-        mm_dtype = (jnp.bfloat16 if jax.default_backend() not in ("cpu",)
-                    else jnp.float32)
         return cls(
-            means=jnp.asarray(np.asarray(am.means)[cb_rows]),
-            var_t=jnp.asarray(np.asarray(am.var_t)[cb_rows]),
-            det=jnp.asarray(np.asarray(am.det)[cb_rows]),
-            wsel=jnp.asarray(wsel, dtype=mm_dtype),
+            means=jnp.asarray(np.asarray(am.means)[used_cb]),
+            var_t=jnp.asarray(np.asarray(am.var_t)[used_cb]),
+            det=jnp.asarray(np.asarray(am.det)[used_cb]),
+            wsel=jnp.asarray(wsel, dtype=mm_dtype()),
             cb_pos=jnp.asarray(cb_pos),
             table_thresh=tables.table_thresh,
             max_topn=tables.max_topn,
@@ -531,36 +513,20 @@ class GraphScorer:
         )
 
 
-@partial(jax.jit, static_argnums=(2,))
-def _dist_stage_graph(gs: GraphScorer, feats, dist_mode: str = "fold"):
+@jax.jit
+def _dist_stage_graph(gs: GraphScorer, feats):
     """feats [T, F, L] -> int32 distances [T, Cu, F, D] over used
-    codebooks (same arithmetic as _dist_stage on the full table)."""
-    if dist_mode == "mxu":
-        mu_v = gs.means * gs.var_t
-        c = jnp.sum(gs.means * mu_v, axis=-1)
-        xv = jnp.einsum("tfl,cfdl->tcfd", feats * feats, gs.var_t,
-                        preferred_element_type=jnp.float32)
-        xmv = jnp.einsum("tfl,cfdl->tcfd", feats, mu_v,
-                         preferred_element_type=jnp.float32)
-        d = gs.det[None] - c[None] - xv + 2.0 * xmv
-    else:
-        L = gs.means.shape[-1]
-        shape = (feats.shape[0],) + gs.det.shape
-        d = jnp.broadcast_to(gs.det[None], shape).astype(jnp.float32)
-        for i in range(L):
-            diff = feats[:, None, :, None, i] - gs.means[None, :, :, :, i]
-            d = d - (diff * diff) * gs.var_t[None, :, :, :, i]
-    return _int_dist(d)
+    codebooks (the same fold as _dist_stage on the full table)."""
+    return _int_dist(_distances_fold(gs, feats))
 
 
 @jax.jit
-def _topn_sen_stage_graph(gs: GraphScorer, di):
+def _topn_sen_stage_graph(gs: GraphScorer, di, row_cbs=None):
     """int32 distances [T, Cu, F, D] -> graph-state senone scores
-    int32 [T, S] (top-N + codebook_norm + senone_eval, restricted)."""
+    int32 [T, S] (top-N + codebook_norm + senone_eval, restricted).
+    row_cbs: see _codebook_norm (bool [R, Cu])."""
     topn_scores, topn_cw = _topn_argmax(di, gs.max_topn)
-    shifted = topn_scores >> SENSCR_SHIFT
-    norm = jnp.max(shifted[..., 0], axis=1, keepdims=True)
-    s = jnp.minimum(-(shifted - norm[..., None]), MAX_NEG_ASCR)
+    s = _codebook_norm(topn_scores, row_cbs)
     T, Cu, F, N = s.shape
     D = di.shape[-1]
     mm_dtype = gs.wsel.dtype
@@ -583,8 +549,12 @@ def _topn_sen_stage_graph(gs: GraphScorer, di):
     return ascore
 
 
-def score_frames_graph(gs: GraphScorer, feats, dist_mode: str = "fold"):
+def score_frames_graph(gs: GraphScorer, feats, row_cbs=None):
     """feats [T, F, L] float32 -> int32 graph-state scores [T, S].
+
+    row_cbs (bool [R, Cu], see _codebook_norm): per-row normalization
+    for a scorer shared by R rows of different graphs (the mixed-batch
+    union scorer).
 
     Same two-dispatch staging rationale as score_frames.  Scores are
     NOT shifted to 0=best per frame: the per-frame best is a constant
@@ -593,5 +563,5 @@ def score_frames_graph(gs: GraphScorer, feats, dist_mode: str = "fold"):
     the scan's renormalization (state_align_search.c:193-197 rule)
     triggers no more than once per ~1000 frames.
     """
-    di = _dist_stage_graph(gs, feats, dist_mode)
-    return _topn_sen_stage_graph(gs, di)
+    di = _dist_stage_graph(gs, feats)
+    return _topn_sen_stage_graph(gs, di, row_cbs)

@@ -1,14 +1,16 @@
 """Device mesh + sharding helpers for batched decoding/alignment.
 
 The reference is strictly single-threaded (SURVEY.md section 2.3); all
-parallelism here is new TPU-native design:
+parallelism here is new design:
 
-* data axis: utterance batches sharded across chips; every utterance's
-  state (CMN, Viterbi scores, token stacks) lives with its shard
+* data axis: utterance batches sharded across devices; every
+  utterance's state (CMN, Viterbi scores, token stacks) lives with its
+  shard, and the pipeline needs no collectives
 * model tables (means/variances/mixw, a few MB) are replicated
-* cross-host batches ride DCN only at dispatch; per-chip compute uses
-  ICI collectives only if sequence parallelism is enabled (future work:
-  ring-carried Viterbi state for long-form audio)
+* meshes take ``jax.devices()`` in order: the cards of one host are
+  joined all to all (NVLink), so no device order is better than another
+* the only collectives are the sequence-parallel ring of
+  parallel/seqpipe.py
 """
 
 from __future__ import annotations

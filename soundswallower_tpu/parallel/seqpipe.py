@@ -2,7 +2,7 @@
 ('seq',) mesh axis.
 
 The reference handles long audio by streaming on one core (SURVEY.md §5
-"long-context": chunked FE, circular buffers, live CMN).  TPU-native
+"long-context": chunked FE, circular buffers, live CMN).  The device
 equivalent: shard the FRAME axis of an utterance across devices and pipe
 the Viterbi recurrence's carry (per-state scores + backpointer heads,
 ~P*3 ints) around the ring with `ppermute` — the only sequential
@@ -44,9 +44,7 @@ def seq_mesh(n_devices: int | None = None) -> Mesh:
 
 
 def _pvary(x):
-    if hasattr(jax.lax, "pcast"):
-        return jax.lax.pcast(x, ("seq",), to="varying")
-    return jax.lax.pvary(x, ("seq",))
+    return jax.lax.pcast(x, ("seq",), to="varying")
 
 
 def _ring_perm(n, reverse=False):

@@ -8,7 +8,7 @@ backpointers (record_transitions :149-175), score renormalization when the
 best score drops below -0x300000 (:193-197), and the token-stack backtrace
 that assigns state start/duration/score (:215-268).
 
-The TPU fast path is in ops/align_jax.py; this version is the parity
+The device fast path is in ops/align_jax.py; this version is the parity
 oracle and handles the two-pass decoder protocol.
 """
 

@@ -6,7 +6,7 @@ with per-(state, left-context) right-context-set deduplication, null
 transition propagation, and cross-word transitions into lextree roots.
 
 This is the exactness/parity implementation (plain Python over the lextree
-node objects); the TPU fast path lives in ops/.  Scores, beams and
+node objects); the device fast path lives in ops/.  Scores, beams and
 history-entry semantics match the C reference; the only tolerated
 divergence is tie-breaking that depends on the C hash-table iteration
 order (see fsg_history_entry_add ordering).

@@ -4,15 +4,20 @@ The .so binaries are not vendored in git: each is rebuilt from its
 source via the checked-in Makefile whenever the binary is missing or
 older than the .cpp, so a stale binary can never silently diverge from
 the source it claims to implement.  ``load_native`` returns None when
-the library cannot be produced (no toolchain, unsupported platform);
-every caller has a pure Python/JAX fallback.
+the library cannot be produced (no toolchain, unsupported platform) and
+logs why.  The I/O, pitch and segment-extraction callers fall back to
+Python with identical results; the aligner's host front end refuses to
+start without its library (see TpuAligner).
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import subprocess
+
+LOG = logging.getLogger(__name__)
 
 
 def native_dir() -> str:
@@ -40,5 +45,9 @@ def load_native(soname: str) -> ctypes.CDLL | None:
             subprocess.run(["make", "-C", d, soname], check=True,
                            capture_output=True, timeout=300)
         return ctypes.CDLL(so)
-    except (OSError, subprocess.SubprocessError):
-        return None
+    except subprocess.CalledProcessError as e:
+        LOG.warning("building native/%s failed: %s", soname,
+                    (e.stderr or b"").decode(errors="replace")[-2000:])
+    except (OSError, subprocess.SubprocessError) as e:
+        LOG.warning("native/%s unavailable: %s", soname, e)
+    return None

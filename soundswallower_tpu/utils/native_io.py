@@ -1,7 +1,7 @@
 """ctypes bindings for the native audio I/O library (native/sst_io.cpp).
 
 Provides fast WAV/raw loading and padded float32 batch packing for the
-TPU pipeline.  Falls back to pure-Python implementations when the shared
+device pipeline.  Falls back to pure-Python implementations when the shared
 library has not been built (``make -C native``).
 """
 

@@ -10,7 +10,7 @@ Two paths:
   C++ (native/sst_yin.cpp) bound via ctypes, with a pure-Python fallback
   when the shared library is not built.
 
-* **Batched TPU path** (`cmnd_batch`, `pitch_batch`): float32 CMND over a
+* **Batched device path** (`cmnd_batch`, `pitch_batch`): float32 CMND over a
   whole ``[..., frame_size]`` frame tensor, computed as difference-energy
   d(t) = sum_j (x[j] - x[t+j])^2 via FFT-free windowed ops, then the
   cumulative-mean normalization and the same threshold-then-argmin period
@@ -249,7 +249,7 @@ def _thresholded_search_py(dw, threshold, start, end):
 
 
 # ---------------------------------------------------------------------------
-# Batched float TPU path
+# Batched float device path
 # ---------------------------------------------------------------------------
 
 def cmnd_batch(frames, ndiff: int | None = None):

@@ -1,4 +1,4 @@
-"""5-state HMM topology: TPU fast path + host scorer vs the C reference.
+"""5-state HMM topology: device fast path + host scorer vs the C reference.
 
 Goldens in tests/golden/5st-en come from the reference oracle run on the
 synthesized 5-state en-us variant (tools/make_5st_model.py: text mdef
@@ -18,7 +18,7 @@ from tests.conftest import GOLDEN, MODELDIR, golden
 
 
 @pytest.fixture(scope="module")
-def model_5st(tmp_path_factory):
+def model_5st(tmp_path_factory, reference):
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
     from make_5st_model import make_5st_model
 
@@ -72,7 +72,7 @@ def test_5st_senscr_bitexact(model_5st):
         sc.frame_eval(feat[min(t + 3, len(feat) - 1)], t + 3)
 
 
-def test_5st_fast_path_matches_reference(aligner_5st):
+def test_5st_fast_path_matches_reference(aligner_5st, reference):
     """Single-pass 5-state Viterbi (align_jax._eval_5st via the batch
     pipeline) reproduces the reference's two-pass word boundaries on the
     5-state model."""
@@ -82,7 +82,7 @@ def test_5st_fast_path_matches_reference(aligner_5st):
     assert got == _ref_segs()
 
 
-def test_5st_batch_and_mixed_match_single(aligner_5st):
+def test_5st_batch_and_mixed_match_single(aligner_5st, reference):
     """Batch lanes kernel (shared graph) and the multi-graph dispatch
     (per-row graphs) both bit-match single-utterance 5-state
     alignment."""

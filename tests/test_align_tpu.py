@@ -1,10 +1,14 @@
-"""TPU single-pass aligner: graph + Viterbi kernel parity.
+"""Single-pass device aligner: graph + Viterbi kernel parity.
 
-Feeds the C reference's own (compallsen) senone scores into the phone-
-graph Viterbi so the test isolates graph construction + DP + backtrace +
-segment extraction.  Word boundaries must match the reference two-pass
-segs exactly (the full fast path including scoring is validated on TPU;
-see also bench.py)."""
+Two tiers.  The C-oracle tests feed the reference's own (compallsen)
+senone scores into the phone-graph Viterbi, isolating graph
+construction + DP + backtrace + segment extraction; word boundaries
+must match the reference two-pass segs exactly (they need the reference
+model).  The self-consistency tests (batch == single, mixed == single,
+dense == union, native == Python extraction) run on the seeded tiny
+model with seeded audio."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -24,8 +28,21 @@ def _ref_segs(name):
 
 
 @pytest.fixture(scope="module")
-def aligner():
-    return TpuAligner(hmm="/root/reference/model/en-us")
+def ref_aligner(reference):
+    return TpuAligner(hmm=os.path.join(reference, "en-us"))
+
+
+@pytest.fixture(scope="module")
+def aligner(tiny_model):
+    return TpuAligner(hmm=tiny_model[0])
+
+
+@pytest.fixture(scope="module")
+def utts(tiny_model):
+    """Seeded (audio, transcript) pairs."""
+    corpus = tiny_model[1]
+    rng = np.random.default_rng(51)
+    return [corpus.pair(rng, 2.5) for _ in range(4)]
 
 
 def _grouped_senscr(aligner, name):
@@ -38,8 +55,8 @@ def _grouped_senscr(aligner, name):
     return out
 
 
-def test_graph_structure(aligner):
-    g = aligner.graph_for_text("go forward ten meters")
+def test_graph_structure(aligner, utts):
+    g = aligner.graph_for_text(utts[0][1])
     assert g.is_entry.sum() >= 2  # leading silence + first word
     assert len(g.final_nodes) >= 2  # last word + trailing silence
     # edges sorted by dst and acyclic forward
@@ -47,7 +64,8 @@ def test_graph_structure(aligner):
     assert (g.edge_src < g.edge_dst).all()
 
 
-def test_align_viterbi_matches_reference_goforward(aligner):
+def test_align_viterbi_matches_reference_goforward(ref_aligner):
+    aligner = ref_aligner
     senscr = _grouped_senscr(aligner, "goforward-en")
     T = len(senscr)
     g = aligner.graph_for_text("go forward ten meters")
@@ -60,46 +78,34 @@ def test_align_viterbi_matches_reference_goforward(aligner):
     assert got == _ref_segs("goforward-en")
 
 
-def test_align_batch_matches_single(aligner):
-    """align_batch (the default, host-FE path when the native lib is
-    available) must produce exactly the segments of per-utterance
-    align(), including for padded shorter utterances (advisor r1: the
-    batch path went untested and shipped broken)."""
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
-    texts = ["go forward ten meters"] * 3
-    audios = [raw, raw[:20000], raw]
+def test_align_batch_matches_single(aligner, utts, tiny_model):
+    """align_batch (the default host-FE path) must produce exactly the
+    segments of per-utterance align(), including for padded shorter
+    utterances."""
+    raw, text = utts[0]
+    texts = [text] * 3
+    audios = [raw, tiny_model[1].audio(text, np.random.default_rng(52)),
+              raw]
     singles = [aligner.align(a, t) for a, t in zip(audios, texts)]
     batch = aligner.align_batch(audios, texts)
     for got, want in zip(batch, singles):
         assert ([(s.word, s.start, s.duration) for s in got]
                 == [(s.word, s.start, s.duration) for s in want])
-    # mixed-transcript fallback path
-    mixed = aligner.align_batch([raw, raw], ["go forward ten meters",
-                                             "go forward"])
-    assert [s.word for s in mixed[0] if s.word != "<sil>"] == \
-        ["go", "forward", "ten", "meters"]
+    # mixed-transcript path
+    mixed = aligner.align_batch([raw, utts[1][0]], [text, utts[1][1]])
+    assert [s.word for s in mixed[0] if s.word != "<sil>"] == text.split()
     assert [s.word for s in mixed[1] if s.word != "<sil>"] == \
-        ["go", "forward"]
+        utts[1][1].split()
 
 
-def test_mixed_batch_single_dispatch_matches_single(aligner):
+def test_mixed_batch_single_dispatch_matches_single(aligner, tiny_model):
     """A batch of DIFFERENT transcripts (the ReadAlongs workload shape:
     one transcript per document, js/api.js:491) through the multi-graph
     single-dispatch path must reproduce per-utterance align() exactly —
-    words, phones, boundaries.  Audio slices follow the known goforward
-    word boundaries so every sub-transcript genuinely matches its
-    audio."""
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
-    S = 160  # samples per frame
-    cases = [
-        (raw, "go forward ten meters"),
-        (raw[: 117 * S], "go forward"),
-        (raw[46 * S: 211 * S], "go forward ten meters"),
-        (raw[117 * S:], "ten meters"),
-        (raw[64 * S: 153 * S], "forward ten"),
-        (raw[46 * S: 117 * S], "go forward"),
-        (raw[153 * S:], "meters"),
-    ]
+    words, phones, boundaries — whatever else shares the batch."""
+    corpus = tiny_model[1]
+    rng = np.random.default_rng(53)
+    cases = [corpus.pair(rng, rng.uniform(0.5, 3.0)) for _ in range(7)]
     audios = [a for a, _ in cases]
     texts = [t for _, t in cases]
     mixed = aligner.align_batch(audios, texts)
@@ -113,28 +119,27 @@ def test_mixed_batch_single_dispatch_matches_single(aligner):
         assert got == want, f"case {i} ({t}) diverged from single-path"
 
 
-def test_mixed_batch_unknown_word_isolated(aligner):
+def test_mixed_batch_unknown_word_isolated(aligner, utts):
     """An unknown word fails only ITS row (None), not the batch."""
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
+    (raw, text), (raw2, text2) = utts[:2]
     out = aligner.align_batch(
-        [raw, raw, raw[: 117 * 160]],
-        ["go forward ten meters", "go xyzzyplugh ten", "go forward"])
+        [raw, raw, raw2], [text, "xyzzyplugh " + text, text2])
     assert out[0] is not None and out[2] is not None
     assert out[1] is None
-    assert [s.word for s in out[0] if s.word != "<sil>"] == \
-        ["go", "forward", "ten", "meters"]
+    assert [s.word for s in out[0] if s.word != "<sil>"] == text.split()
 
 
-def test_stack_graphs_size_classes(aligner):
+def test_stack_graphs_size_classes(aligner, tiny_model):
     """stack_graphs pads to bounded (P, K) size classes and its pad
     rows/slots can never win: re-stacking a batch with one extra small
     graph keeps the same class, and the per-row tensors of a graph are
     independent of its batch neighbors."""
     from soundswallower_tpu.ops.align_graph import stack_graphs
 
-    g1 = aligner.graph_for_text("go forward ten meters")
-    g2 = aligner.graph_for_text("go forward")
-    g3 = aligner.graph_for_text("meters")
+    w = tiny_model[1].words
+    g1 = aligner.graph_for_text(" ".join(w[:4]))
+    g2 = aligner.graph_for_text(" ".join(w[:2]))
+    g3 = aligner.graph_for_text(w[3])
     tmat = aligner.am.tmat.astype(np.int32)
     remap = aligner.tables.sen_remap
     a = stack_graphs([g1, g2], tmat, remap)
@@ -151,7 +156,8 @@ def test_stack_graphs_size_classes(aligner):
     assert (b["astart"][2, P1:] > b["aend"][2, P1:]).all()
 
 
-def test_align_phone_level_contiguity(aligner):
+def test_align_phone_level_contiguity(ref_aligner):
+    aligner = ref_aligner
     senscr = _grouped_senscr(aligner, "goforward-en")
     T = len(senscr)
     g = aligner.graph_for_text("go forward ten meters")
@@ -168,7 +174,7 @@ def test_align_phone_level_contiguity(aligner):
     assert pos == T
 
 
-def test_ms_backend_align_end_to_end(ms_en):
+def test_ms_backend_align_end_to_end(ms_en, reference):
     """TpuAligner on a fully-continuous (ms) model: the aligner routes
     through dense ms scoring (no graph-restricted scorer) + per-row
     gather; boundaries must match the en-us PTM model's on the same
@@ -178,14 +184,14 @@ def test_ms_backend_align_end_to_end(ms_en):
 
     _, cfg = ms_en
     raw = np.fromfile(f"{DATADIR}/goforward.raw", np.int16)
-    al = TpuAligner(hmm="/root/reference/model/en-us",
+    al = TpuAligner(hmm=os.path.join(reference, "en-us"),
                     senmgau=cfg["senmgau"], mixw=cfg["mixw"], sendump="")
     assert al.am.backend == "ms"
     out = al.align_batch([raw, raw], ["go forward ten meters"] * 2)
     assert out[0] is not None and out[1] is not None
     words = [(s.word, s.start, s.duration) for s in out[0]]
     assert words == [(s.word, s.start, s.duration) for s in out[1]]
-    ref = TpuAligner(hmm="/root/reference/model/en-us")
+    ref = TpuAligner(hmm=os.path.join(reference, "en-us"))
     base = ref.align_batch([raw], ["go forward ten meters"])[0]
     got_w = [(s.word, s.start, s.duration) for s in out[0]]
     ref_w = [(s.word, s.start, s.duration) for s in base]
@@ -197,14 +203,13 @@ def test_ms_backend_align_end_to_end(ms_en):
             (w, (s1, d1), (s2, d2))
 
 
-def test_graph_cache_rebuild_and_mllr_invalidation(tmp_path):
-    """VERDICT r4 item 9: graph device caches are keyed by a monotonic
+def test_graph_cache_rebuild_and_mllr_invalidation(tmp_path, reference):
+    """graph device caches are keyed by a monotonic
     serial (never id(), which can alias after GC), and update_mllr
     invalidates every cache that baked the old Gaussians — alignment
     results must change under the transform and stay self-consistent
     across graph drop/rebuild cycles."""
     import gc
-    import os
     import sys
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
@@ -215,7 +220,7 @@ def test_graph_cache_rebuild_and_mllr_invalidation(tmp_path):
 
     raw = np.fromfile(f"{DATADIR}/goforward.raw", np.int16)
     text = "go forward ten meters"
-    al = TpuAligner(hmm="/root/reference/model/en-us")
+    al = TpuAligner(hmm=os.path.join(reference, "en-us"))
 
     base = [(s.word, s.start, s.duration)
             for s in al.align_batch([raw], [text])[0]]
@@ -247,20 +252,21 @@ def test_graph_cache_rebuild_and_mllr_invalidation(tmp_path):
     # reproduce the old ones bit-for-bit)
     assert [s.score for s in scored_after] != [s.score for s in scored_before]
     # and a fresh aligner built with the transform agrees exactly
-    fresh = TpuAligner(hmm="/root/reference/model/en-us", mllr=mllr_path)
+    fresh = TpuAligner(hmm=os.path.join(reference, "en-us"),
+                       mllr=mllr_path)
     ref = fresh.align_batch([raw], [text])[0]
     assert [(s.word, s.start, s.duration) for s in after] == \
            [(s.word, s.start, s.duration) for s in ref]
 
 
-def test_native_extraction_matches_python(aligner):
+def test_native_extraction_matches_python(aligner, utts):
     """native/sst_seg.cpp batch extraction == the Python _extract on
     same-transcript AND mixed batches (words, starts, durations,
     phones, silence grouping, per-row failure isolation)."""
-    raw = np.fromfile(f"{DATADIR}/goforward.raw", np.int16)
-    texts = ["go forward ten meters", "go forward", "ten meters go",
-             "forward forward"]
-    audios = [raw, raw[:30000], raw, raw[:20000]]
+    raw = utts[0][0]
+    texts = [t for _, t in utts]
+    # row 3 gets far too little audio for its transcript: a failed row
+    audios = [a for a, _ in utts[:3]] + [raw[:3200]]
     h = aligner.align_batch_begin(audios, texts)
     g, Ts, paths_d, pscore_d, final_d, realB = h
     paths = np.asarray(paths_d)
@@ -283,15 +289,15 @@ def test_native_extraction_matches_python(aligner):
                 for s in b]
 
 
-def test_fr_batch_alignment(aligner_fr=None):
+def test_fr_batch_alignment(reference):
     """BASELINE config 3: fr-fr batch forced alignment — batched rows
     must equal the single-utterance path exactly (different senone
     inventory/codebook count exercises the scorer's other shape
     class)."""
     from soundswallower_tpu.aligner import TpuAligner
 
-    al = TpuAligner(hmm="/root/reference/model/fr-fr",
-                    dict="/root/reference/model/fr-fr/dict.txt")
+    al = TpuAligner(hmm=os.path.join(reference, "fr-fr"),
+                    dict=os.path.join(reference, "fr-fr", "dict.txt"))
     raw = np.fromfile(f"{DATADIR}/goforward_fr.raw", np.int16)
     text = "avance de dix mètres"
     single = al.align(raw, text)
@@ -305,15 +311,14 @@ def test_fr_batch_alignment(aligner_fr=None):
     assert all(o is not None for o in mout)
 
 
-def test_mixed_dense_fallback_matches_union(aligner):
+def test_mixed_dense_fallback_matches_union(aligner, utts):
     """Once the working set covers most of the senone inventory the
     mixed path falls back to dense scoring; both scorers must yield
-    identical segments (per-frame normalization differences are
-    constant shifts that cancel in the Viterbi argmax)."""
-    raw = np.fromfile(f"{DATADIR}/goforward.raw", np.int16)
-    texts = ["go forward ten meters", "ten go", "forward meters",
-             "meters ten go forward"]
-    audios = [raw, raw[:25000], raw[:30000], raw]
+    identical segments (each row is normalized over its own graph's
+    codebooks in both, and the per-frame best-senone shift cancels in
+    the Viterbi argmax)."""
+    texts = [t for _, t in utts]
+    audios = [a for a, _ in utts]
     base = aligner.align_batch(audios, texts)       # union scorer
     uni = aligner._union_scorer([aligner.graph_for_text(t) for t in texts])
     assert uni is not None                           # union path active

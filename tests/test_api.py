@@ -46,7 +46,7 @@ def test_vad_frame_sizing():
         Vad(sample_rate=16000, frame_length=0.0301)
 
 
-def test_endpointer_segments_speech():
+def test_endpointer_segments_speech(reference):
     """The endpointer must detect the single speech region in goforward."""
     ep = Endpointer(sample_rate=16000)
     raw = np.fromfile(f"{DATADIR}/goforward.raw", dtype=np.int16)
@@ -74,7 +74,7 @@ def test_cmn_live_window_decay():
     assert abs(float(c.mean[0]) - 10.0) < 0.5
 
 
-def test_native_io_wav_vs_raw():
+def test_native_io_wav_vs_raw(reference):
     s, r = read_audio(f"{DATADIR}/goforward.wav")
     s2, r2 = read_audio(f"{DATADIR}/goforward.raw")
     assert r == 16000 and r2 is None
@@ -84,7 +84,7 @@ def test_native_io_wav_vs_raw():
     assert b[1, 99] == float(s2[99]) and b[1, 100] == 0.0
 
 
-def test_decoder_timing_and_logfile(tmp_path):
+def test_decoder_timing_and_logfile(tmp_path, reference):
     """utt_time/all_time perf counters (decoder.c:1252-1274) and
     set_logfile routing (decoder.c:201-228)."""
     import logging
@@ -109,7 +109,7 @@ def test_decoder_timing_and_logfile(tmp_path):
     assert "xRT" in log and "HMMs" in log
 
 
-def test_defective_inputs_fail_cleanly():
+def test_defective_inputs_fail_cleanly(reference):
     """The reference's failure-path fixtures (tests/data/defective.*,
     py/test/test_decoder.py test_decode_fail): bad inputs raise clean
     Python errors — never crash, never silently succeed."""
@@ -148,7 +148,7 @@ def test_defective_inputs_fail_cleanly():
                 samprate=4000)
 
 
-def test_float32_audio_ingest_matches_int16():
+def test_float32_audio_ingest_matches_int16(reference):
     """decoder_process_float32 semantics (fe_process_float32 scaling by
     32768, dither off by default): float32 audio at exactly
     int16/32768 must yield the identical alignment."""

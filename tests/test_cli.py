@@ -1,7 +1,7 @@
 """CLI-level tests, ported from the reference's py/test/test_cli.py:
 whole-CLI runs over goforward en/fr through --align/--align-text/
 --grammar/--fsg, -o output files, JSON schema checks incl. <sil>
-filtering.  The default CLI path is the TPU fast path (one batched
+filtering.  The default CLI path is the device fast path (one batched
 dispatch over the input files); --exact parity is covered by the
 SST_SLOW decoder suite."""
 
@@ -39,7 +39,7 @@ def check_output(jpath, text="go forward ten meters", n_lines=None):
         assert lines == n_lines
 
 
-def test_cli_align_text(tmp_path):
+def test_cli_align_text(tmp_path, reference):
     jpath = str(tmp_path / "output.json")
     cli.main((
         "--output", jpath,
@@ -67,7 +67,7 @@ def test_cli_align_text(tmp_path):
     assert abs(words["meters"]["b"] - 1.53) < 0.011
 
 
-def test_cli_align_file(tmp_path):
+def test_cli_align_file(tmp_path, reference):
     tf = tmp_path / "text.txt"
     tf.write_text("go forward ten meters\n")
     jpath = str(tmp_path / "output.json")
@@ -80,7 +80,7 @@ def test_cli_align_file(tmp_path):
     check_output(jpath, n_lines=1)
 
 
-def test_cli_grammar(tmp_path):
+def test_cli_grammar(tmp_path, reference):
     jpath = str(tmp_path / "output.json")
     cli.main((
         "--grammar", os.path.join(DATADIR, "goforward.gram"),
@@ -92,7 +92,7 @@ def test_cli_grammar(tmp_path):
     check_output(jpath, n_lines=2)
 
 
-def test_cli_fsg(tmp_path):
+def test_cli_fsg(tmp_path, reference):
     jpath = str(tmp_path / "output.json")
     cli.main((
         "--fsg", os.path.join(DATADIR, "goforward.fsg"),
@@ -103,7 +103,7 @@ def test_cli_fsg(tmp_path):
     check_output(jpath, n_lines=1)
 
 
-def test_cli_other_model(tmp_path):
+def test_cli_other_model(tmp_path, reference):
     jpath = str(tmp_path / "output.json")
     cli.main((
         "--grammar", os.path.join(DATADIR, "goforward_fr.gram"),
@@ -122,8 +122,8 @@ def test_cli_write_config(tmp_path):
         assert json.load(infh)
 
 
-def test_state_align_fast_path_matches_exact():
-    """--state-align WITHOUT --exact (VERDICT r4 item 6): the fast
+def test_state_align_fast_path_matches_exact(reference):
+    """--state-align WITHOUT --exact: the fast
     path emits 3-level word/phone/STATE JSON straight from its Viterbi
     path.  Against the byte-parity golden of the exact two-pass
     decoder (tests/golden/goforward-en/result.json), every boundary,
@@ -152,7 +152,7 @@ def test_state_align_fast_path_matches_exact():
     assert strip_p(fast) == strip_p(gold)
 
 
-def test_state_align_fast_path_matches_exact_fr():
+def test_state_align_fast_path_matches_exact_fr(reference):
     """fr-fr state-level fast path vs the exact golden: hyp, words,
     variants (de(2)/mètres(4)), and every word AND phone boundary
     byte-equal; the STATE level matches in structure (same senone

@@ -1,4 +1,4 @@
-"""TPU grammar decoder: static decode graph + dense Viterbi vs the C
+"""device grammar decoder: static decode graph + dense Viterbi vs the C
 reference's beam search (tools/oracle goldens, JSGF grammars).
 
 The graph compiles the full search space (triphone context expansion,
@@ -46,7 +46,7 @@ def _decode_with_golden_scores(al, name):
 
 
 @pytest.fixture(scope="module")
-def en():
+def en(reference):
     return TpuAligner(hmm="/root/reference/model/en-us")
 
 
@@ -104,7 +104,7 @@ def _decode_score_windows(al, name, windows):
     return int(fsc.max())
 
 
-def test_jsgf_decode_matches_reference_fr():
+def test_jsgf_decode_matches_reference_fr(reference):
     """fr-fr grammar with alternate pronunciations: the reference picks
     de(2)/mètres(4); the dense decode must pick the same variants.
     Boundaries may shift a few frames: dense Viterbi finds a path the
@@ -156,7 +156,7 @@ def test_jsgf_decode_pizza_branching(en):
         assert free > con, (free, con)
 
 
-def test_jsgf_decode_austen_branching():
+def test_jsgf_decode_austen_branching(reference):
     """A branching grammar over the Austen vocabulary (alternatives at
     every position + a Kleene tail) on real matching audio: hyp and
     exact boundaries vs the C beam search."""
@@ -172,7 +172,7 @@ def test_jsgf_decode_austen_branching():
         assert free > con, (free, con)
 
 
-def test_jsgf_decode_imports():
+def test_jsgf_decode_imports(reference):
     """Cross-file rule imports (jsgf.c:740 semantics): a grammar
     importing two rules from a sibling file, decode-parity vs the C
     beam search on the Austen audio."""

@@ -25,7 +25,7 @@ CASES = [
 
 
 @pytest.mark.parametrize("name,raw,rate", CASES)
-def test_mfcc_bitexact(name, raw, rate):
+def test_mfcc_bitexact(name, raw, rate, reference):
     fe = _fe_8k_band(rate)
     audio = np.fromfile(raw, dtype=np.int16)
     cep = fe.process_int16(audio)
@@ -35,7 +35,7 @@ def test_mfcc_bitexact(name, raw, rate):
 
 
 @pytest.mark.parametrize("name,raw,rate", CASES)
-def test_feat_bitexact(name, raw, rate):
+def test_feat_bitexact(name, raw, rate, reference):
     cep = golden(name, "mfcc.f32", np.float32, (-1, 13))
     feat = feats_full_utt_np(cep, cmn_mode="current")
     gold = golden(name, "feat.f32", np.float32, (-1, 3, 13))
@@ -103,7 +103,7 @@ def test_warp_neutral_and_errors():
 
 @slow
 @pytest.mark.parametrize("name,params", WARPS)
-def test_warped_mfcc_bit_parity(name, params):
+def test_warped_mfcc_bit_parity(name, params, reference):
     """Full MFCC pipeline with VTLN active vs the C front end (en-us FE
     config, goforward.raw)."""
     from soundswallower_tpu.fe.frontend import Frontend
@@ -120,7 +120,7 @@ def test_warped_mfcc_bit_parity(name, params):
     assert np.array_equal(cep, gold)
 
 
-def test_spectrogram_matches_js_binding_goldens():
+def test_spectrogram_matches_js_binding_goldens(reference):
     """spectrogram() parity vs the JS binding's C implementation
     (js/soundswallower.c:88-112, dumped by tools/oracle/spec_oracle.c):
     raw mel log-spectra bit-exact, smoothed (DCT-II/DCT-III round trip,

@@ -32,7 +32,7 @@ def test_logmath_8bit_table():
     assert lm8.fast_add(0, 0) == -7
 
 
-def test_mdef_counts():
+def test_mdef_counts(reference):
     m = BinMdef(f"{MODELDIR}/en-us/mdef")
     assert (m.n_ciphone, m.n_phone, m.n_sen, m.n_sseq) == (42, 137095, 5126, 28458)
     assert m.n_emit_state == 3
@@ -41,7 +41,7 @@ def test_mdef_counts():
     assert (fr.n_ciphone, fr.n_phone, fr.n_sen) == (36, 97057, 2108)
 
 
-def test_gauden_read():
+def test_gauden_read(reference):
     means, n_mgau, n_feat, n_dens, veclen = s3.read_gauden_params(
         f"{MODELDIR}/en-us/means")
     assert (n_mgau, n_feat, n_dens) == (42, 3, 128)

@@ -11,7 +11,7 @@ from soundswallower_tpu.logmath import LogMath
 LMATH = LogMath(1.0001, 0, True)
 
 
-def test_fsg_text_read():
+def test_fsg_text_read(reference):
     fsg = FsgModel.read_fsg_file(f"{DATADIR}/goforward.fsg", LMATH, 6.5)
     assert fsg.n_state > 0
     assert "go" in fsg.vocab
@@ -43,7 +43,7 @@ def test_fsg_silence_and_alt():
     assert fsg.is_alt(fsg.word_id("hello(2)"))
 
 
-def test_jsgf_goforward():
+def test_jsgf_goforward(reference):
     g = Jsgf.parse_file(f"{DATADIR}/goforward.gram")
     assert g.name == "goforward"
     rule = g.get_rule("goforward.move")
@@ -54,7 +54,7 @@ def test_jsgf_goforward():
     assert fsg.n_state >= 6
 
 
-def test_jsgf_pizza_kleene_optional():
+def test_jsgf_pizza_kleene_optional(reference):
     g = Jsgf.parse_file(f"{DATADIR}/pizza.gram")
     rule = g.default_rule()
     assert rule is not None

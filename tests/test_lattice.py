@@ -43,7 +43,7 @@ def fsg_run(en_us_mod):
 
 
 @pytest.fixture(scope="module")
-def en_us_mod():
+def en_us_mod(reference):
     import os
 
     from soundswallower_tpu.am import AcousticModel
@@ -163,9 +163,8 @@ def test_segs_match_reference(fsg_run):
     assert got == want
 
 
-def test_nbest_from_tpu_fast_path():
-    """nbest/lattice WITHOUT the slow exact decoder (VERDICT r4 item
-    7): device dense scoring (bit-exact compallsen) + the host
+def test_nbest_from_device_fast_path(reference):
+    """nbest/lattice WITHOUT the slow exact decoder (    7): device dense scoring (bit-exact compallsen) + the host
     history-table beam search.  The golden lattice/nbest were dumped
     by the C in compallsen mode on the same audio, so every hyp and
     score matches exactly."""

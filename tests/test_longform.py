@@ -1,9 +1,7 @@
-"""Long-form (>=60 s) alignment (VERDICT r4 item 3 / weak #5).
+"""Long-form (>=60 s) alignment.
 
-The reference's long-form oracle is the Austen utterance
-(/root/reference/tests/test_word_align.c:8, golden
-tests/golden/austen-en).  Its ~3 s clip is tiled past a minute and
-pushed through every long-audio mechanism:
+A seeded utterance of over a minute on the seeded tiny model is pushed
+through every long-audio mechanism:
 
 * offline fast path (align_batch) vs sequence-parallel
   align_longform_batch: MUST be segment-identical (same batch-CMN
@@ -14,30 +12,41 @@ pushed through every long-audio mechanism:
   chunk-size independence, mid-stream checkpoint/restore equivalence
   (decoder_get_cmn/set_cmn analog), and segmentation structure;
 * the exact two-pass decoder anchors the fast path on a multi-clip
-  concatenation in the SST_SLOW tier.
+  concatenation of the reference's long-form oracle (the Austen
+  utterance, golden tests/golden/austen-en) in the SST_SLOW tier.
 """
 
+import os
+
 import numpy as np
+import pytest
 
 from tests.conftest import GOLDEN, slow
 
 AUSTEN = "he was not an ill disposed young man"
 
 
-def _aligner():
+def _aligner(reference):
     from soundswallower_tpu.aligner import TpuAligner
 
-    return TpuAligner(hmm="/root/reference/model/en-us", samprate=8000)
+    return TpuAligner(hmm=os.path.join(reference, "en-us"), samprate=8000)
 
 
 def _segs(segs):
     return [(s.word, s.start, s.duration) for s in segs]
 
 
-def _check_structure(al, segs, audio, k):
+@pytest.fixture(scope="module")
+def long_utt(tiny_model):
+    """A seeded utterance of just over a minute."""
+    audio, text = tiny_model[1].pair(np.random.default_rng(61), 61.0)
+    assert len(audio) / 16000.0 > 60.0
+    return audio, text
+
+
+def _check_structure(al, segs, audio, text):
     words = [s for s in segs if s.word != "<sil>"]
-    assert len(words) == 8 * k
-    assert [w.word.split("(")[0] for w in words] == AUSTEN.split() * k
+    assert [w.word.split("(")[0] for w in words] == text.split()
     # segmentation invariants (test_word_align.c:138-160): words +
     # silences tile the utterance contiguously, phones tile each word
     pos = 0
@@ -52,17 +61,13 @@ def _check_structure(al, segs, audio, k):
     assert pos == al.fe.n_frames(len(audio))
 
 
-def test_longform_60s_offline_and_seqparallel():
-    raw = np.fromfile(f"{GOLDEN}/austen.raw", np.int16)
-    k = 21                            # ~62.8 s at 8 kHz
-    audio = np.tile(raw, k)
-    assert len(audio) / 8000.0 > 60.0
-    text = " ".join([AUSTEN] * k)
-    al = _aligner()
+def test_longform_60s_offline_and_seqparallel(tiny_aligner, long_utt):
+    audio, text = long_utt
+    al = tiny_aligner
 
     base = al.align_batch([audio], [text])[0]
     assert base is not None
-    _check_structure(al, base, audio, k)
+    _check_structure(al, base, audio, text)
 
     # sequence parallel (frame axis sharded over all local devices,
     # ring-carried Viterbi): bit-identical segments
@@ -71,19 +76,17 @@ def test_longform_60s_offline_and_seqparallel():
     assert _segs(sp) == _segs(base)
 
 
-def test_longform_streaming_chunk_invariance_and_restore():
-    raw = np.fromfile(f"{GOLDEN}/austen.raw", np.int16)
-
+def test_longform_streaming_chunk_invariance_and_restore(
+        tiny_aligner, tiny_model, long_utt):
     # chunk-size invariance holds below the live-CMN high-water mark:
     # the reference's cmn_live checks the window AFTER each processed
     # block (cmn_live.c:107-135) and cmninit primes nframe at
     # CMN_WIN=500, so past ~300 frames the shift point — and thus the
     # mean — legitimately depends on push granularity, in C exactly as
     # here.
-    k2 = 1                            # ~3 s = 298 frames (500+298 <= 800)
-    audio2 = np.tile(raw, k2)
-    text2 = " ".join([AUSTEN] * k2)
-    al = _aligner()
+    audio2, text2 = tiny_model[1].pair(np.random.default_rng(62), 1.8)
+    assert tiny_aligner.fe.n_frames(len(audio2)) < 300
+    al = tiny_aligner
     st = al.stream(text2)
     for i in range(0, len(audio2), 3200):
         st.push(audio2[i:i + 3200])
@@ -94,15 +97,12 @@ def test_longform_streaming_chunk_invariance_and_restore():
     inv_b = st.end()
     assert _segs(inv_b) == _segs(inv_a)
 
-    k = 7                             # ~21 s: live-CMN decay region
-    audio = np.tile(raw, k)
-    text = " ".join([AUSTEN] * k)
-
+    audio, text = long_utt            # past a minute: live-CMN decay
     st = al.stream(text)
     for i in range(0, len(audio), 3200):
         st.push(audio[i:i + 3200])
     segs_a = st.end()
-    _check_structure(al, segs_a, audio, k)
+    _check_structure(al, segs_a, audio, text)
 
     # checkpoint mid-stream, restore in a NEW stream object, continue
     from soundswallower_tpu.streaming import AlignStream
@@ -180,7 +180,7 @@ def _viterbi_windows(al, g, audio, windows):
 
 
 @slow
-def test_longform_exact_two_pass_parity():
+def test_longform_exact_two_pass_parity(reference):
     """Fast path vs the exact two-pass decoder on a multi-clip Austen
     concatenation (the reference's own long-form check is
     word-boundary based, test_word_align.c:62).  The two-pass search
@@ -196,14 +196,14 @@ def test_longform_exact_two_pass_parity():
     audio = np.tile(raw, k)
     text = " ".join([AUSTEN] * k)
 
-    d = Decoder(hmm="/root/reference/model/en-us", samprate=8000)
+    d = Decoder(hmm=os.path.join(reference, "en-us"), samprate=8000)
     d.set_align_text(text)
     d.start_utt()
     d.process_raw(audio)
     d.end_utt()
     exact = [(s["word"], s["sf"], s["ef"]) for s in d.seg_iter()]
 
-    al = _aligner()
+    al = _aligner(reference)
     fast = al.align_batch([audio], [text])[0]
     got = [(s.word, s.start, s.start + s.duration - 1) for s in fast]
     # same words, boundaries within a tight tolerance

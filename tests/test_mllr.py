@@ -18,7 +18,7 @@ from tests.conftest import MODELDIR, golden
 
 
 @pytest.fixture(scope="module")
-def mllr_en(tmp_path_factory):
+def mllr_en(tmp_path_factory, reference):
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
     from make_mllr import make_mllr
 
@@ -50,8 +50,8 @@ def test_mllr_senscr_bitexact(mllr_en):
         assert (out == gold[t]).all(), f"frame {t} mllr scores differ"
 
 
-def test_mllr_tpu_scorer_parity(mllr_en):
-    """The batched TPU scorer built from the TRANSFORMED model agrees
+def test_mllr_device_scorer_parity(mllr_en):
+    """The batched device scorer built from the TRANSFORMED model agrees
     with the C goldens to the same standard as the un-adapted path
     (exact top-4 replaces the C early-termination search)."""
     import jax.numpy as jnp
@@ -63,15 +63,15 @@ def test_mllr_tpu_scorer_parity(mllr_en):
     t = ScorerTables.from_am(am)
     feat = golden("mllr-en", "feat.f32", np.float32, (-1, 3, 13))
     gold = golden("mllr-en", "senscr.i16", np.int16, (-1, am.n_sen))
-    got = ungroup(t, np.asarray(score_frames(t, jnp.asarray(feat), "fold")))
+    got = ungroup(t, np.asarray(score_frames(t, jnp.asarray(feat))))
     got = got[: len(gold)]
     frac = (got == gold).mean()
-    assert frac > 0.999, f"TPU scorer agreement after MLLR dropped to {frac}"
+    assert frac > 0.999, f"device scorer agreement after MLLR dropped to {frac}"
 
 
 def test_mllr_two_pass_alignment_matches(mllr_en):
     """Word boundaries from the reference's MLLR-adapted two-pass run
-    (segs.txt) match our TPU aligner with update_mllr applied."""
+    (segs.txt) match our device aligner with update_mllr applied."""
     from soundswallower_tpu.aligner import TpuAligner
     from soundswallower_tpu.mllr import Mllr, apply_mllr
     from tests.conftest import GOLDEN

@@ -41,7 +41,7 @@ def test_topn_state_matches_reference(en_us):
 
 
 def test_naive_topk_close_to_reference(en_us):
-    """The TPU fast path uses exact top-4 by final distance; quantify its
+    """The device fast path uses exact top-4 by final distance; quantify its
     divergence from the C early-termination semantics (must stay tiny)."""
     am, _ = en_us
     feat = golden("goforward-en", "feat.f32", np.float32, (-1, 3, 13))
@@ -112,8 +112,8 @@ def test_semi_senscr_bitexact(semi_en):
         assert (out == gold[t]).all(), f"frame {t} semi scores differ"
 
 
-def test_tpu_semi_score_frames_parity(semi_en):
-    """Batched TPU scorer in semi mode vs the C goldens: same agreement
+def test_device_semi_score_frames_parity(semi_en):
+    """Batched device scorer in semi mode vs the C goldens: same agreement
     standard as the PTM path (the fast path's exact top-4 replaces the
     C 2-frame-seeded early-termination search)."""
     import jax.numpy as jnp
@@ -165,8 +165,8 @@ def test_semi_4b_senscr_bitexact(semi_4b_en):
         assert (out == gold[t]).all(), f"frame {t} semi-4b scores differ"
 
 
-def test_tpu_4b_scorers_agree(ptm_4b_en, semi_4b_en):
-    """The dense TPU scorer (ScorerTables.from_am) and the
+def test_device_4b_scorers_agree(ptm_4b_en, semi_4b_en):
+    """The dense device scorer (ScorerTables.from_am) and the
     graph-restricted scorer (GraphScorer.build) must decode a clustered
     sendump IDENTICALLY — for both backends' conventions.  (Round-3
     advisor finding: from_am used packed-byte parity unconditionally, so
@@ -195,8 +195,8 @@ def test_tpu_4b_scorers_agree(ptm_4b_en, semi_4b_en):
         assert gs.wrap_u8 == t.wrap_u8 == am.mixw_wrap_u8
 
 
-def test_tpu_4b_score_frames_parity(ptm_4b_en):
-    """Batched TPU scorer on the 4-bit clustered model vs the C golden
+def test_device_4b_score_frames_parity(ptm_4b_en):
+    """Batched device scorer on the 4-bit clustered model vs the C golden
     (same standard as the 8-bit PTM parity test)."""
     import jax.numpy as jnp
 
@@ -207,14 +207,14 @@ def test_tpu_4b_score_frames_parity(ptm_4b_en):
     t = ScorerTables.from_am(am)
     feat = golden("ptm4b-en", "feat.f32", np.float32, (-1, 3, 13))
     gold = golden("ptm4b-en", "senscr.i16", np.int16, (-1, am.n_sen))
-    got = ungroup(t, np.asarray(score_frames(t, jnp.asarray(feat), "fold")))
+    got = ungroup(t, np.asarray(score_frames(t, jnp.asarray(feat))))
     got = got[: len(gold)]
     frac = (got == gold).mean()
-    assert frac > 0.999, f"TPU 4-bit scorer agreement dropped to {frac}"
+    assert frac > 0.999, f"device 4-bit scorer agreement dropped to {frac}"
 
 
-def test_tpu_score_frames_parity(en_us):
-    """The batched TPU scorer (senscore_jax.score_frames) vs the C golden
+def test_device_score_frames_parity(en_us):
+    """The batched device scorer (senscore_jax.score_frames) vs the C golden
     compallsen scores.  The fast path intentionally drops eval_cb's
     dynamic-threshold early termination and cross-frame top-N seeding
     (ptm_mgau.c:181-209, 2-frame history ring), which changes a handful
@@ -238,13 +238,13 @@ def test_tpu_score_frames_parity(en_us):
 
     feat = golden("goforward-en", "feat.f32", np.float32, (-1, 3, 13))
     gold = golden("goforward-en", "senscr.i16", np.int16, (-1, am.n_sen))
-    got = ungroup(t, np.asarray(score_frames(t, jnp.asarray(feat), "fold")))
+    got = ungroup(t, np.asarray(score_frames(t, jnp.asarray(feat))))
     got = got[: len(gold)]
     frac = (got == gold).mean()
-    assert frac > 0.999, f"TPU scorer agreement dropped to {frac}"
+    assert frac > 0.999, f"device scorer agreement dropped to {frac}"
 
 
-def test_graph_scorer_matches_full_scorer_paths():
+def test_graph_scorer_matches_full_scorer_paths(reference):
     """The graph-restricted scorer (GraphScorer) equals the full grouped
     scorer at the graph's senone columns up to a per-frame additive
     constant, EXCEPT where the MAX_NEG_ASCR clamp saturates: the
@@ -281,7 +281,7 @@ def test_graph_scorer_matches_full_scorer_paths():
 
 
 def test_ms_senscr_jax_bitexact(ms_en):
-    """The JAX/TPU ms scorer (score_frames' ms path: float top-N with
+    """The JAX ms scorer (score_frames' ms path: float top-N with
     the C's insertion tie rule, ms_senone rounded shifts + full
     logmath_add, aw truncation, int16-clamped best-subtraction) must
     reproduce the C oracle compallsen scores bit-for-bit."""
@@ -300,7 +300,7 @@ def test_ms_senscr_jax_bitexact(ms_en):
     assert np.array_equal(out, gold)
 
 
-def test_ms_1to1_no_senmgau_fallback(tmp_path):
+def test_ms_1to1_no_senmgau_fallback(tmp_path, reference):
     """The no-senmgau 1:1 senone<->codebook fallback
     (ms_senone.c:225-241): a model whose gauden count equals n_sen maps
     each senone to its own codebook.  Synthesized by expanding the

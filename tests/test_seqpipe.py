@@ -4,14 +4,18 @@ Runs the wavefront-pipelined chunked forward + backtrace over an
 8-virtual-device ('seq',) CPU mesh and compares the decoded state paths
 and final scores against the single-device scan on the same inputs —
 they share the per-frame step function, so equality must be exact.
+The inputs are the seeded tiny model's scores of a seeded utterance;
+the golden-segment test needs the reference model.
 """
+
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from tests.conftest import golden
+from tests.conftest import GOLDEN, golden
 
 from soundswallower_tpu.aligner import TpuAligner
 from soundswallower_tpu.ops.align_jax import (
@@ -19,15 +23,33 @@ from soundswallower_tpu.ops.align_jax import (
 from soundswallower_tpu.parallel.seqpipe import align_longform, seq_mesh
 
 
-@pytest.fixture(scope="module")
-def setup():
-    al = TpuAligner(hmm="/root/reference/model/en-us")
-    g = al.graph_for_text("go forward ten meters")
-    raw = golden("goforward-en", "senscr.i16", np.int16, (-1, al.am.n_sen))
+def _grouped(al, raw):
+    """[T, n_sen] scores -> the scorer's grouped column layout."""
     G = int(np.prod(al.tables.group_shape))
     sen = np.zeros((len(raw), G), np.int16)
     sen[:, al.tables.sen_remap] = raw
-    return al, g, sen
+    return sen
+
+
+@pytest.fixture(scope="module")
+def utt(tiny_model):
+    return tiny_model[1].pair(np.random.default_rng(31), 3.0)
+
+
+@pytest.fixture(scope="module")
+def setup(tiny_aligner, utt):
+    al = tiny_aligner
+    audio, text = utt
+    g = al.graph_for_text(text)
+    return al, g, _grouped(al, al._dense_scores_utt(audio))
+
+
+@pytest.fixture(scope="module")
+def ref_setup(reference):
+    al = TpuAligner(hmm=os.path.join(reference, "en-us"))
+    g = al.graph_for_text("go forward ten meters")
+    raw = golden("goforward-en", "senscr.i16", np.int16, (-1, al.am.n_sen))
+    return al, g, _grouped(al, raw)
 
 
 def _args(al, g):
@@ -48,7 +70,7 @@ def test_seqpipe_matches_single_device(setup):
     # batch of 5 utterances with different lengths (same senscr source,
     # truncated) so the wavefront handles ragged n_frames
     T_real = len(sen)
-    lens = [T_real, T_real - 17, T_real - 40, 128, T_real - 5]
+    lens = [T_real, T_real - 17, T_real - 40, T_real - 60, T_real - 5]
     B = len(lens)
     Tpad = -(-T_real // (nseq * 8)) * (nseq * 8)
     batch = np.zeros((B, Tpad, sen.shape[1]), np.int16)
@@ -77,10 +99,10 @@ def test_seqpipe_matches_single_device(setup):
         assert (path == path_sp[i]).all(), f"utt {i} path differs"
 
 
-def test_seqpipe_segments_match_reference(setup):
+def test_seqpipe_segments_match_reference(ref_setup):
     """End to end: sequence-parallel path -> segment extraction ->
     reference two-pass boundaries."""
-    al, g, sen = setup
+    al, g, sen = ref_setup
     senid, tp, pi, pp, pk, ast, aen, entry = _args(al, g)
     mesh = seq_mesh(8)
     T = len(sen)
@@ -93,21 +115,19 @@ def test_seqpipe_segments_match_reference(setup):
     segs = al._extract(g, np.asarray(path[0]), T, int(score[0]))
     got = [(s.word, s.start, s.start + s.duration - 1) for s in segs]
     ref = []
-    import os
-    from tests.conftest import GOLDEN
     for line in open(os.path.join(GOLDEN, "goforward-en", "segs.txt")):
         w, sf, ef, ascr, lscr = line.split()
         ref.append((w, int(sf), int(ef)))
     assert got == ref
 
 
-def test_align_longform_batch_matches_align_batch(setup):
+def test_align_longform_batch_matches_align_batch(setup, utt, tiny_model):
     """The public longform API must reproduce align_batch exactly: same
     wire format, same graph-restricted scorer, ring-carried Viterbi."""
     al, _, _ = setup
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
-    texts = ["go forward ten meters"] * 2
-    audios = [raw, raw[:30000]]
+    raw, text = utt
+    texts = [text] * 2
+    audios = [raw, tiny_model[1].audio(text, np.random.default_rng(32))]
     want = al.align_batch(audios, texts)
     got = al.align_longform_batch(audios, texts)
     for w, g2 in zip(want, got):

@@ -1,8 +1,9 @@
 """Serving layer: HTTP align endpoint + dynamic batcher.
 
 Starts the ThreadingHTTPServer on an ephemeral port with the real
-TpuAligner (CPU backend here) and drives it over actual HTTP,
-including concurrent requests that must coalesce into one batch.
+TpuAligner on the seeded tiny model (CPU backend here) and drives it
+over actual HTTP, including concurrent requests that must coalesce into
+one batch.
 """
 
 import base64
@@ -19,13 +20,19 @@ from soundswallower_tpu.serve import AlignService, make_server, segs_to_json
 
 
 @pytest.fixture(scope="module")
-def server():
-    al = TpuAligner(hmm="/root/reference/model/en-us")
+def utt(tiny_model):
+    """(audio, transcript) of a seeded utterance."""
+    _, corpus = tiny_model
+    return corpus.pair(np.random.default_rng(11), 2.5)
+
+
+@pytest.fixture(scope="module")
+def server(tiny_model, utt):
+    al = TpuAligner(hmm=tiny_model[0])
     # prewarm the size-8 bucket on the main thread (what serve.py
     # --prewarm-text does): a cold CPU compile would otherwise land on
     # the first HTTP request's latency and time it out
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
-    al.align_batch([raw], ["go forward ten meters"])
+    al.align_batch([utt[0]], [utt[1]])
     srv = make_server(al, "127.0.0.1", 0, max_batch=8, max_wait_ms=200.0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -59,19 +66,19 @@ def test_health_and_config(server):
     assert code == 200 and cfg["feat"] == "1s_c_d_dd"
 
 
-def test_align_endpoint(server):
+def test_align_endpoint(server, utt):
     srv, al = server
     port = srv.server_address[1]
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
+    raw, text = utt
     code, res = _post(port, {
-        "text": "go forward ten meters",
+        "text": text,
         "audio": base64.b64encode(raw.tobytes()).decode()})
     assert code == 200
-    assert res["t"] == "go forward ten meters"
+    assert res["t"] == text
     words = [w["t"] for w in res["w"] if not w["t"].startswith("<")]
-    assert words == ["go", "forward", "ten", "meters"]
+    assert words == text.split()
     # word segs match the direct aligner path
-    direct = segs_to_json(al.align(raw, "go forward ten meters"))
+    direct = segs_to_json(al.align(raw, text))
     assert res == direct
     # phone nesting present and contiguous within words
     for w in res["w"]:
@@ -83,7 +90,7 @@ def test_align_bad_requests(server):
     srv, _ = server
     port = srv.server_address[1]
     try:
-        _post(port, {"text": "go forward"})
+        _post(port, {"text": "no audio"})
         assert False, "expected 400"
     except urllib.error.HTTPError as e:
         assert e.code == 400
@@ -95,12 +102,12 @@ def test_align_bad_requests(server):
         assert e.code == 500
 
 
-def test_batcher_coalesces(server):
+def test_batcher_coalesces(server, utt):
     """Concurrent same-transcript requests must run as ONE pipelined
     batch dispatch (align_batch_begin), not serial singles."""
     srv, al = server
     port = srv.server_address[1]
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
+    raw, text = utt
     calls = []
     orig = al.align_batch_begin
 
@@ -113,7 +120,7 @@ def test_batcher_coalesces(server):
         results = [None] * 4
         def hit(i):
             results[i] = _post(port, {
-                "text": "go forward ten meters",
+                "text": text,
                 "audio": base64.b64encode(raw.tobytes()).decode()})
         threads = [threading.Thread(target=hit, args=(i,)) for i in range(4)]
         for t in threads:
@@ -126,7 +133,7 @@ def test_batcher_coalesces(server):
     assert max(calls) >= 2, f"no batching happened: {calls}"
 
 
-def test_responses_match_published_schema(server):
+def test_responses_match_published_schema(server, utt):
     """The js/ client package's typed contract (js/index.d.ts): field
     sets and types of every endpoint response must match what the .d.ts
     declares — this test IS the schema check standing in for a node
@@ -142,9 +149,9 @@ def test_responses_match_published_schema(server):
     _, cfg = _get(port, "/v1/config")
     assert isinstance(cfg, dict) and "samprate" in cfg
 
-    raw = np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
+    raw, text = utt
     _, out = _post(port, {
-        "text": "go forward ten meters",
+        "text": text,
         # exactly the bytes js/client.js puts on the wire: little-endian
         # int16 PCM, base64
         "audio": base64.b64encode(raw.astype("<i2").tobytes()).decode(),
@@ -160,6 +167,6 @@ def test_responses_match_published_schema(server):
             check_seg(child, depth + 1)
 
     check_seg(out)
-    assert out["t"] == "go forward ten meters"
+    assert out["t"] == text
     words = [w["t"] for w in out["w"] if not w["t"].startswith("<")]
-    assert words == ["go", "forward", "ten", "meters"]
+    assert words == text.split()

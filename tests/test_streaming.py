@@ -13,26 +13,34 @@ any point, must produce IDENTICAL segments.
 import numpy as np
 import pytest
 
-from soundswallower_tpu.aligner import TpuAligner
 
-TEXT = "go forward ten meters"
+@pytest.fixture(scope="module")
+def aligner(tiny_aligner):
+    return tiny_aligner
 
 
 @pytest.fixture(scope="module")
-def aligner():
-    return TpuAligner(hmm="/root/reference/model/en-us")
+def utt(tiny_model):
+    """A seeded utterance under 3 s (below the live-CMN update point,
+    where chunking moves the CMN shift) and its transcript."""
+    return tiny_model[1].pair(np.random.default_rng(21), 1.8)
 
 
 @pytest.fixture(scope="module")
-def raw():
-    return np.fromfile("/root/reference/tests/data/goforward.raw", np.int16)
+def raw(utt):
+    return utt[0]
+
+
+@pytest.fixture(scope="module")
+def TEXT(utt):
+    return utt[1]
 
 
 def _segs(out):
     return [(s.word, s.start, s.duration) for s in out]
 
 
-def test_stream_chunk_size_invariance(aligner, raw):
+def test_stream_chunk_size_invariance(aligner, raw, TEXT):
     results = []
     for chunk in (len(raw), 16000, 1600, 777):
         st = aligner.stream(TEXT)
@@ -42,7 +50,7 @@ def test_stream_chunk_size_invariance(aligner, raw):
     assert results[0] == results[1] == results[2] == results[3]
 
 
-def test_stream_invariants(aligner, raw):
+def test_stream_invariants(aligner, raw, TEXT):
     st = aligner.stream(TEXT)
     st.push(raw)
     segs = st.end()
@@ -59,7 +67,7 @@ def test_stream_invariants(aligner, raw):
     assert pos == aligner.fe.n_frames(len(raw))
 
 
-def test_stream_checkpoint_resume(aligner, raw):
+def test_stream_checkpoint_resume(aligner, raw, TEXT):
     from soundswallower_tpu.streaming import AlignStream
 
     want = None
@@ -67,7 +75,7 @@ def test_stream_checkpoint_resume(aligner, raw):
     st.push(raw)
     want = _segs(st.end())
     # checkpoint mid-stream at several points, restore, continue
-    for cut in (5000, 20000, 40001):
+    for cut in (5000, len(raw) // 2, len(raw) - 7999):
         a = aligner.stream(TEXT)
         a.push(raw[:cut])
         ckpt = a.state()
@@ -80,17 +88,17 @@ def test_stream_checkpoint_resume(aligner, raw):
         assert _segs(b.end()) == want, f"resume at {cut} diverged"
 
 
-def test_stream_partial_results(aligner, raw):
+def test_stream_partial_results(aligner, raw, TEXT):
     st = aligner.stream(TEXT)
-    st.push(raw[:30000])
+    st.push(raw[:len(raw) * 4 // 5])   # past one 128-frame Viterbi chunk
     partial = st.result()  # best-so-far backtrace
     assert partial and partial[0].start == 0
-    st.push(raw[30000:])
+    st.push(raw[len(raw) * 4 // 5:])
     final = st.end()
     assert [s.word for s in final if s.word != "<sil>"] == TEXT.split()
 
 
-def test_stream_agrees_with_offline_on_words(aligner, raw):
+def test_stream_agrees_with_offline_on_words(aligner, raw, TEXT):
     """Live CMN vs batch CMN: word sequences must agree and boundaries
     stay within a small tolerance (the reference's own live mode shows
     the same kind of divergence)."""

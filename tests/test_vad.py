@@ -33,7 +33,9 @@ CASES = [
 
 @pytest.mark.parametrize("name,raw_path,rate,mode,ms", CASES,
                          ids=[f"{c[0]}-r{c[2]}-m{c[3]}-f{c[4]}" for c in CASES])
-def test_vad_decisions_bitexact(name, raw_path, rate, mode, ms):
+def test_vad_decisions_bitexact(name, raw_path, rate, mode, ms, request):
+    if raw_path.startswith(DATADIR):
+        request.getfixturevalue("reference")   # skips without the checkout
     raw = np.fromfile(raw_path, np.int16)
     frame_size = rate * ms // 1000
     d = os.path.join(VADG, f"{name}-r{rate}-m{mode}-f{ms}")
@@ -45,7 +47,7 @@ def test_vad_decisions_bitexact(name, raw_path, rate, mode, ms):
     assert np.array_equal(got, gold)
 
 
-def test_vad_features_bitexact():
+def test_vad_features_bitexact(reference):
     """Sub-band log energies + total power (vad_filterbank.c) over the
     full goforward utterance at 16 kHz."""
     raw = np.fromfile(os.path.join(DATADIR, "goforward.raw"), np.int16)
@@ -71,7 +73,7 @@ def test_vad_wrapper_rate_selection():
         Vad(sample_rate=16000, frame_length=0.0301)
 
 
-def test_endpointer_bitexact_vs_reference():
+def test_endpointer_bitexact_vs_reference(reference):
     """End-to-end endpointer parity: per-frame return/in_speech flags,
     speech_start/speech_end timestamps, and the exact speech samples
     returned (golden from tools/oracle/ep_oracle.c, window=0.3 ratio=0.9

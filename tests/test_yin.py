@@ -44,11 +44,11 @@ def _run(smooth):
     return out
 
 
-def test_yin_smoothed_parity():
+def test_yin_smoothed_parity(reference):
     assert _run(SMOOTH) == _read_gold("yin_pitch.txt")
 
 
-def test_yin_raw_parity():
+def test_yin_raw_parity(reference):
     # smooth=0 exercises cmn_diff + thresholded_search alone; drop the
     # end-of-utterance drain (smooth=0 read after end returns None).
     got = _run(0)
@@ -56,7 +56,7 @@ def test_yin_raw_parity():
     assert got == gold
 
 
-def test_cmn_diff_python_fallback_matches_native():
+def test_cmn_diff_python_fallback_matches_native(reference):
     from soundswallower_tpu import yin as ymod
 
     if ymod._lib() is None:
@@ -67,8 +67,8 @@ def test_cmn_diff_python_fallback_matches_native():
     np.testing.assert_array_equal(native, py)
 
 
-def test_pitch_batch_float_agrees_roughly():
-    """The float TPU path should agree with the exact path on voiced
+def test_pitch_batch_float_agrees_roughly(reference):
+    """The float device path should agree with the exact path on voiced
     frames (period within 1 sample where bestdiff is confidently low)."""
     import jax.numpy as jnp
 

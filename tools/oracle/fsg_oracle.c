@@ -1,6 +1,6 @@
 /* FSG oracle: parse a JSGF file with the reference's compiler and dump
  * the resulting fsg_model_t as text (fsg_model_write) — the weight /
- * topology parity target for the TPU reimplementation's jsgf.py.
+ * topology parity target for the device reimplementation's jsgf.py.
  *
  * Usage: fsg_oracle <file.gram> [lw]
  */

@@ -1,6 +1,6 @@
 /* Oracle dumper: runs the reference SoundSwallower C library and dumps
  * intermediate values (MFCC frames, feature vectors, senone scores,
- * alignment JSON) as raw binary + JSON for parity testing of the TPU
+ * alignment JSON) as raw binary + JSON for parity testing of the device
  * reimplementation.  Test-tooling only; not part of the framework.
  *
  * Usage:
